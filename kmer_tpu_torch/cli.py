@@ -1,0 +1,131 @@
+"""Command-line interface of the PyTorch port.
+
+  python -m kmer_tpu_torch count --input reads.fastq -k 21 --canonical
+                                 [--top 10] [--device cuda]
+
+The ``count`` subcommand takes ``kmer_tpu count``'s flags and prints the
+same output for FASTA/FASTQ input: one ``kmer<TAB>count`` line per group
+on stdout, by descending count and then ascending key, and a
+``# N distinct, T total`` line on stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+
+def _infer_format(path: str) -> str:
+    low = path.lower()
+    if low.endswith(".gz"):
+        low = low[:-3]
+    if low.endswith((".fastq", ".fq")):
+        return "fastq"
+    if low.endswith((".fasta", ".fa", ".fna")):
+        return "fasta"
+    return "csv"
+
+
+def _cmd_count(args) -> int:
+    from .packed import PackedKmers
+    from .pipeline import count_file
+    from .utils.logging import StatsCounters, get_logger
+
+    log = get_logger()
+    stats = StatsCounters()
+    fmt = args.format or _infer_format(args.input)
+    if fmt == "csv":
+        raise NotImplementedError(
+            "CSV input (the kmer/dna column GROUP BY) is not ported to "
+            "kmer_tpu_torch yet (ROADMAP.md §1 item 8)")
+    result = count_file(
+        args.input, fmt, args.k, canonical=args.canonical,
+        batch=args.batch or None, width=args.width or None,
+        chunk_bytes=args.chunk_mb << 20 if args.chunk_mb else None,
+        max_capacity=args.max_slots or None,
+        spill_dir=args.spill_dir,
+        stats=stats,
+        ckpt_path=args.ckpt,
+        device=args.device,
+    )
+    log.info("stats %s", stats.to_json())
+    # trimmed rows are in ascending key order, so a stable sort by -count
+    # keeps ties key-ascending; only the printed rows are decoded
+    t = result.trim()
+    hi, lo, length, counts = t.to_numpy()
+    c64 = counts.astype(np.int64)
+    order = np.argsort(-c64, kind="stable")
+    if args.top:
+        order = order[: args.top]
+    strs = PackedKmers(hi=hi, lo=lo, length=length)[order].to_strings()
+    for kmer, count in zip(strs, c64[order]):
+        print(f"{kmer}\t{int(count)}")
+    print(f"# {c64.size} distinct, {int(c64.sum())} total", file=sys.stderr)
+    if args.save:
+        from .utils.checkpoint import save_table
+
+        save_table(t, args.save, {"k": args.k, "canonical": args.canonical})
+        log.info("saved table to %s", args.save)
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="kmer_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("count", help="GROUP BY counts over a FASTA/FASTQ file")
+    c.add_argument("--input", required=True)
+    c.add_argument(
+        "--format", choices=["csv", "fasta", "fastq"], default=None,
+        help="input format (default: inferred from the file extension; "
+        "csv is not ported yet)",
+    )
+    c.add_argument("-k", type=int, default=8)
+    c.add_argument("--canonical", action="store_true")
+    c.add_argument("--top", type=int, default=0)
+    c.add_argument(
+        "--batch", type=int, default=0,
+        help="reads per device batch (0 = auto: ~64M window slots a batch)",
+    )
+    c.add_argument(
+        "--width", type=int, default=0,
+        help="fixed row width in bases (0 = auto from the first ingest "
+        "chunk's read lengths; longer reads split exactly)",
+    )
+    c.add_argument("--save", default=None, help="save table snapshot (.npz)")
+    c.add_argument(
+        "--ckpt", default=None, metavar="PATH",
+        help="checkpoint path (streaming route only: not ported yet)",
+    )
+    c.add_argument(
+        "--chunk-mb", type=int, default=0, metavar="MB",
+        help="ingest window size in MiB (default 256)",
+    )
+    c.add_argument(
+        "--slots", type=int, default=1 << 24, metavar="N",
+        help="initial accumulator slots of the streaming route; the "
+        "single-shot route, the only one ported, does not use it",
+    )
+    c.add_argument(
+        "--max-slots", type=int, default=0, metavar="N",
+        help="device slot budget (streaming route only: not ported yet)",
+    )
+    c.add_argument(
+        "--spill-dir", default=None, metavar="DIR",
+        help="spill directory (streaming route only: not ported yet)",
+    )
+    c.add_argument(
+        "--device", default="cuda",
+        help="torch device to count on (default cuda; cpu runs the plain "
+        "PyTorch versions of the kernels)",
+    )
+    c.set_defaults(fn=_cmd_count)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,83 @@
+"""Out-of-core file ingestion: record-aligned byte windows of a FASTA or
+FASTQ file (plain or ``.gz``), each parsed standalone by the native
+encoders.  The counterpart of ``kmer_tpu/io/ingest.py``.
+
+Memory bound: one chunk plus one carried partial record.  A record larger
+than the chunk budget grows the carry until it completes.
+"""
+
+from __future__ import annotations
+
+import gzip
+from typing import Iterator
+
+import numpy as np
+
+from ..native import fasta_encode, fastq_encode, record_boundary
+
+DEFAULT_CHUNK_BYTES = 256 << 20
+
+# search this far back from a chunk's end for a record boundary before
+# doubling; covers any realistic read length in one probe
+_TAIL_WINDOW = 1 << 20
+
+
+def _open_stream(path: str):
+    return gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
+
+
+def iter_record_chunks(
+    path: str, fmt: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES
+) -> Iterator[bytes]:
+    """Yield byte windows of ~chunk_bytes cut at record boundaries.
+
+    Every window starts at a validated record start and ends immediately
+    before one, so the concatenation of all windows' records equals the
+    whole file's.
+    """
+    if chunk_bytes <= 0:
+        raise ValueError("chunk_bytes must be positive")
+    carry = b""
+    with _open_stream(path) as f:
+        while True:
+            # read in bounded increments: file.read(n) preallocates ~n bytes
+            parts = []
+            got = 0
+            while got < chunk_bytes:
+                b = f.read(min(64 << 20, chunk_bytes - got))
+                if not b:
+                    break
+                parts.append(b)
+                got += len(b)
+            if not parts:
+                break
+            block = parts[0] if len(parts) == 1 else b"".join(parts)
+            data = (carry + block) if carry else block
+            # find a boundary near the end; widen backwards while the tail
+            # window is mid-record
+            window = _TAIL_WINDOW
+            cut = len(data)
+            while window < 2 * len(data):
+                b = record_boundary(data, max(1, len(data) - window), fmt)
+                if b < len(data):
+                    cut = b
+                    break
+                window *= 2
+            if cut == len(data) or cut == 0:
+                carry = data  # no internal boundary: read on
+                continue
+            yield data[:cut]
+            carry = data[cut:]
+    if carry:
+        yield carry
+
+
+def iter_encoded_chunks(
+    path: str, fmt: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Yield (codes stream, per-read offsets) per bounded chunk."""
+    enc = fastq_encode if fmt == "fastq" else fasta_encode
+    for window in iter_record_chunks(path, fmt, chunk_bytes):
+        codes, offs = enc(window)
+        if offs.size > 1:
+            yield codes, offs

@@ -1,0 +1,75 @@
+"""Builds the port's shared libraries from the sources in this checkout.
+
+Each library compiles at first use, and again when its source is newer
+than the built file, into ``build/kmer_tpu_torch/`` at the repository
+root (listed in ``.gitignore``).  A build writes a temporary file and
+renames it into place, so processes that build at the same time never
+load a half-written library.
+
+* CUDA kernels (``kmer_tpu_torch/csrc/*.cu``): ``nvcc`` for ``sm_90a``
+  into a library with a plain C interface, loaded with ctypes.  No
+  PyTorch headers are included, so a build takes seconds.
+* The host parser (``native/kmer_native.c``): ``cc``.  The port builds
+  its own copy and leaves ``kmer_tpu``'s ``native/libkmer_native.so``
+  alone.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO_ROOT = os.path.dirname(_PKG_DIR)
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "kmer_tpu_torch")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+NATIVE_SRC = os.path.join(REPO_ROOT, "native", "kmer_native.c")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+CC_FLAGS = ["-O3", "-fPIC", "-shared", "-pthread"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def build_library(src: str, name: str, compiler: list[str]) -> str:
+    """Compile ``src`` into ``BUILD_DIR/name`` unless an up-to-date build
+    exists; returns the library path.  A failed build raises."""
+    out = os.path.join(BUILD_DIR, name)
+    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".tmp.so")
+    os.close(fd)
+    try:
+        proc = subprocess.run([*compiler, "-o", tmp, src],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} from {src} failed "
+                f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def cuda_library(src_name: str) -> str:
+    """Build ``csrc/<src_name>`` with nvcc for Hopper (``sm_90a``)."""
+    stem = os.path.splitext(src_name)[0]
+    return build_library(os.path.join(CSRC_DIR, src_name), f"lib{stem}.so",
+                         [_nvcc(), *NVCC_FLAGS])
+
+
+def native_library() -> str:
+    """Build the host parser library from ``native/kmer_native.c``."""
+    return build_library(NATIVE_SRC, "libkmer_native.so", ["cc", *CC_FLAGS])

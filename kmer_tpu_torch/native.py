@@ -1,0 +1,150 @@
+"""Host parser bindings (ctypes over ``native/kmer_native.c``) and the
+device unpack of the packed wire.
+
+The counterpart of ``kmer_tpu/native.py``.  The C library is built from
+the repository's source into the port's build directory
+(``kernels/build.py``); there is no numpy fallback, so a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from .errors import InvalidDnaSequenceError
+from .kernels.build import native_library
+
+_lib = None
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_longlong)
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(native_library())
+    lib.kn_encode_validate.restype = ctypes.c_longlong
+    lib.kn_encode_validate.argtypes = [ctypes.c_char_p, ctypes.c_longlong, _u8p]
+    parse_argtypes = [ctypes.c_char_p, ctypes.c_longlong, _u8p, _i64p,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    for fn in (lib.kn_fasta_encode_mt, lib.kn_fastq_encode_mt):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = parse_argtypes
+    for fn in (lib.kn_fasta_boundary_at, lib.kn_fastq_boundary_at):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong]
+    lib.kn_rows_packed.restype = ctypes.c_longlong
+    lib.kn_rows_packed.argtypes = [
+        _u8p, _i64p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int]
+    _lib = lib
+    return lib
+
+
+def _parse_threads() -> int:
+    """Parser threads; the C parsers run sequentially below 1 MiB."""
+    return min(os.cpu_count() or 1, 16)
+
+
+def encode_dna_fast(seq: bytes | str) -> np.ndarray:
+    """Validate + encode DNA to 2-bit codes (uint8) in one native pass."""
+    if isinstance(seq, str):
+        seq = seq.encode("ascii", errors="replace")
+    n = len(seq)
+    out = np.empty(n, dtype=np.uint8)
+    if _load().kn_encode_validate(seq, n, out.ctypes.data_as(_u8p)) >= 0:
+        raise InvalidDnaSequenceError()
+    return out
+
+
+def _encode(fn, data: bytes, fmt: str, skip_invalid: bool):
+    # a FASTA record is >= 3 bytes and a FASTQ record >= 8: size the
+    # offsets buffer from the input
+    max_reads = min(1 << 24, len(data) // (8 if fmt == "fastq" else 3) + 16)
+    n = len(data)
+    codes = np.empty(n, dtype=np.uint8)
+    offsets = np.empty(max_reads + 1, dtype=np.int64)
+    r = fn(data, n, codes.ctypes.data_as(_u8p), offsets.ctypes.data_as(_i64p),
+           max_reads, 1 if skip_invalid else 0, _parse_threads())
+    if r == -1 - n:
+        raise ValueError(f"{fmt}_encode: max_reads capacity exceeded")
+    if r < 0:
+        raise InvalidDnaSequenceError()
+    nreads = int(r)
+    total = int(offsets[nreads])
+    return codes[:total].copy(), offsets[: nreads + 1].copy()
+
+
+def fasta_encode(data: bytes, skip_invalid: bool = True):
+    """FASTA bytes -> (code stream, per-read offsets [n_reads+1])."""
+    return _encode(_load().kn_fasta_encode_mt, data, "fasta", skip_invalid)
+
+
+def fastq_encode(data: bytes, skip_invalid: bool = True):
+    """FASTQ bytes -> (code stream, per-read offsets [n_reads+1]).
+
+    Strict 4-line records; quality lines are skipped by sequence length.
+    """
+    return _encode(_load().kn_fastq_encode_mt, data, "fastq", skip_invalid)
+
+
+def record_boundary(data: bytes, pos: int, fmt: str) -> int:
+    """First validated record start at or after ``pos`` (len(data) if none)."""
+    n = len(data)
+    if pos <= 0:
+        return 0
+    if pos >= n:
+        return n
+    lib = _load()
+    fn = lib.kn_fastq_boundary_at if fmt == "fastq" else lib.kn_fasta_boundary_at
+    return int(fn(data, n, pos))
+
+
+def rows_packed(codes: np.ndarray, offsets: np.ndarray, width: int,
+                k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(code stream, offsets) -> fixed-width 2-bit-packed wire:
+    (words [rows, width/16] uint32, lengths [rows] uint16).
+
+    Reads longer than ``width`` split into pieces sharing a k-1 base
+    overlap, so every window lands in exactly one row.
+    """
+    if width % 16 or width <= k - 1:
+        raise ValueError(f"width {width} must be a multiple of 16 > k-1")
+    if width > 0xFFFF:
+        raise ValueError(f"width {width} exceeds the uint16 row-length "
+                         "bound (65535); long reads split exactly, so "
+                         "smaller widths lose nothing")
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    codes = np.ascontiguousarray(codes, np.uint8)
+    n_reads = offsets.size - 1
+    lens = np.diff(offsets)
+    step = width - (k - 1)
+    extra = np.maximum(lens - width, 0)
+    total = int((1 + -(-extra // step)).sum()) if n_reads else 0
+    words = np.empty((total, width // 16), np.uint32)
+    out_lens = np.empty(total, np.uint16)
+    r = _load().kn_rows_packed(
+        codes.ctypes.data_as(_u8p), offsets.ctypes.data_as(_i64p),
+        n_reads, width, k,
+        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        out_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        _parse_threads(),
+    )
+    if r != total:
+        raise RuntimeError(f"kn_rows_packed wrote {r} rows, expected {total}")
+    return words, out_lens
+
+
+def device_unpack_rows(words: torch.Tensor, length: int) -> torch.Tensor:
+    """[B, nw] packed words (int64 holding uint32 values) -> [B, length]
+    int64 2-bit codes, on the words' device.  Base j of a row sits at
+    bits ``30 - 2*(j % 16)`` of word ``j // 16``."""
+    pos = torch.arange(length, device=words.device)
+    return (words[:, pos // 16] >> (30 - 2 * (pos % 16))) & 3

@@ -1,0 +1,131 @@
+"""Exact k-mer counting (GROUP BY / COUNT / DISTINCT) on int64 keys.
+
+The counterpart of ``kmer_tpu/ops/count.py``: sort the keys, then count
+equal-key segments with the segment-count kernel.  The TPU version's k
+tiers, uint16 lo lane and one-key group sort with odd-even fixup exist
+because the TPU lacks a fast 64-bit sort; here they are one ``torch.sort``
+of the sign-flipped int64 key.
+
+Table layout ("sorted-run" form): a CountTable's ``keys`` hold the sorted
+keys with duplicates in place; ``counts`` holds each segment's total in
+one slot of the segment (the kernel's tail slot) and 0 elsewhere, so live
+groups are ``counts > 0``, in ascending key order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.segment_counts import segment_counts
+from ..packed import SIGN_FLIP, PackedKmers, hi_lo_from_key, key_from_hi_lo
+
+# Sentinel lanes for invalid slots (the values of kmer_tpu/ops/count.py):
+# an invalid window's key is all ones, and its length lane SENTINEL_LEN.
+SENTINEL = np.uint32(0xFFFFFFFF)
+SENTINEL_LEN = np.int32(0x7FFFFFFF)
+SENTINEL_KEY = -1  # both lanes SENTINEL, as one int64
+
+
+@dataclasses.dataclass(frozen=True)
+class CountTable:
+    """Sorted-run (keys, counts) table; groups live where counts > 0.
+
+    keys: int64 [n] left-aligned keys, ascending in unsigned order;
+    length: int32 [n]; counts: int32 [n]; n_unique: live-group count (a
+    0-dim tensor, or an int on a trimmed table).
+    """
+
+    keys: torch.Tensor
+    length: torch.Tensor
+    counts: torch.Tensor
+    n_unique: torch.Tensor | int
+
+    @property
+    def capacity(self) -> int:
+        return int(self.keys.numel())
+
+    def trim(self) -> "CountTable":
+        """The live groups in ascending key order, as a host table.
+
+        A boolean-mask select keeps key order.  The live rows move to the
+        host as one stacked tensor, not one transfer per lane.
+        """
+        live = self.counts > 0
+        rows = torch.stack([
+            self.keys[live],
+            self.length[live].to(torch.int64),
+            self.counts[live].to(torch.int64),
+        ]).cpu()
+        return CountTable(
+            keys=rows[0],
+            length=rows[1].to(torch.int32),
+            counts=rows[2].to(torch.int32),
+            n_unique=int(rows.shape[1]),
+        )
+
+    def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+        """(hi uint32, lo uint32, length int32, counts int32): the arrays
+        of a ``kmer_tpu`` CountTable with the same slots."""
+        hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
+        return (hi, lo, self.length.cpu().numpy().astype(np.int32),
+                self.counts.cpu().numpy().astype(np.int32))
+
+    @classmethod
+    def from_numpy(cls, hi, lo, length, counts, device="cpu") -> "CountTable":
+        """A table from a ``kmer_tpu`` CountTable's (hi, lo, length,
+        counts) arrays, on ``device``."""
+        counts = torch.tensor(np.asarray(counts, np.int32), device=device)
+        return cls(
+            keys=torch.tensor(key_from_hi_lo(hi, lo), device=device),
+            length=torch.tensor(np.asarray(length, np.int32), device=device),
+            counts=counts,
+            n_unique=(counts > 0).sum().to(torch.int32),
+        )
+
+    def to_dict(self) -> dict[str, int]:
+        """{kmer string: count}: the GROUP BY result as a host dict."""
+        hi, lo, length, counts = self.trim().to_numpy()
+        strs = PackedKmers(hi=hi, lo=lo, length=length).to_strings()
+        return {s: int(c) for s, c in zip(strs, counts)}
+
+    def total(self) -> int:
+        """COUNT(*): total weight across groups."""
+        return int(self.counts.to(torch.int64).sum())
+
+    def distinct(self) -> int:
+        """COUNT(DISTINCT kmer)."""
+        return int(self.n_unique)
+
+
+def count_windows(keys: torch.Tensor, valid: torch.Tensor | None,
+                  k: int) -> CountTable:
+    """Unit-weight fixed-k counting of int64 window keys (any shape).
+
+    With a validity mask and k <= 31, invalid slots fold into the all-ones
+    sentinel, which no real key equals (its low padding bits are zero) and
+    which sorts last; the kernel leaves it out.  For k = 32 an all-``t``
+    32-mer equals the sentinel bit for bit, so the valid keys are selected
+    before the sort instead.
+    """
+    keys = keys.reshape(-1)
+    sentinel = None
+    if valid is not None:
+        valid = valid.reshape(-1)
+        if k == 32:
+            keys = keys[valid]
+        else:
+            keys = torch.where(valid, keys, SENTINEL_KEY)
+            sentinel = SENTINEL_KEY ^ SIGN_FLIP
+    flipped = torch.sort(keys ^ SIGN_FLIP).values
+    counts, n_unique = segment_counts(flipped, sentinel)
+    if sentinel is None:
+        length = torch.full_like(counts, k)
+    else:
+        length = torch.where(flipped == sentinel, int(SENTINEL_LEN),
+                             k).to(torch.int32)
+    return CountTable(keys=flipped.bitwise_xor_(SIGN_FLIP), length=length,
+                      counts=counts, n_unique=n_unique)

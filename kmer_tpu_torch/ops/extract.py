@@ -1,0 +1,96 @@
+"""Sliding-window k-mer extraction and canonicalization on int64 keys.
+
+The counterpart of ``kmer_tpu/ops/extract.py``.  A key is the 64-bit
+left-aligned packing of ``packed.py`` held in one int64; every function
+here is plain PyTorch on the device of its input.
+
+Two int64 traps shape the code: ``>>`` is arithmetic, so every right
+shift of a key is masked after it, and key order is unsigned, so
+comparisons run on ``key ^ SIGN_FLIP``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..codec import MAX_K
+from ..errors import InvalidKmerLengthError
+from ..packed import SIGN_FLIP
+
+
+def extract_windows_batch(codes: torch.Tensor, lengths: torch.Tensor,
+                          k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched extraction over padded reads.
+
+    codes: [B, L] 2-bit codes (padded); lengths: [B].  Returns (keys int64
+    [B, L-k+1], valid bool [B, L-k+1]); window (b, i) is valid iff
+    ``i <= lengths[b] - k``.
+    """
+    b, n = codes.shape
+    m = n - k + 1
+    if not 1 <= k <= MAX_K or m <= 0:
+        raise InvalidKmerLengthError()
+    codes = codes.to(torch.int64)
+    keys = torch.zeros((b, m), dtype=torch.int64, device=codes.device)
+    for j in range(k):
+        keys |= codes[:, j: j + m] << (62 - 2 * j)
+    pos = torch.arange(m, device=codes.device)
+    valid = pos[None, :] <= (lengths.to(torch.int64)[:, None] - k)
+    return keys, valid
+
+
+# (mask, shift) steps that reverse the 32 2-bit groups of a 64-bit word;
+# each mask has its top `shift` bits clear, so it also strips the sign
+# bits an arithmetic right shift drags in
+_REVERSE_STEPS = (
+    (0x3333333333333333, 2),
+    (0x0F0F0F0F0F0F0F0F, 4),
+    (0x00FF00FF00FF00FF, 8),
+    (0x0000FFFF0000FFFF, 16),
+    (0x00000000FFFFFFFF, 32),
+)
+
+
+def revcomp_packed(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of left-aligned int64 k-mer keys of length k.
+
+    The complement of a 2-bit code c is 3-c == ~c; reversing the 32 groups
+    of the 64-bit key right-aligns the reverse complement, and a left
+    shift by ``64 - 2k`` re-left-aligns it while dropping the complemented
+    padding.  For k = 32 that shift is 0 and is skipped: a shift by 64 is
+    not 0 on every device.
+    """
+    x = ~keys
+    for mask, s in _REVERSE_STEPS:
+        x = ((x >> s) & mask) | ((x & mask) << s)
+    s = 64 - 2 * k
+    return x if s == 0 else x << s
+
+
+def canonicalize(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """min(key, revcomp(key)) in unsigned key order, elementwise."""
+    rc = revcomp_packed(keys, k)
+    return torch.where((keys ^ SIGN_FLIP) <= (rc ^ SIGN_FLIP), keys, rc)
+
+
+def simulate_reads(num_reads: int, read_len: int, seed: int = 0) -> np.ndarray:
+    """Random 2-bit code reads [num_reads, read_len] (benchmark inputs)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 4, size=(num_reads, read_len), dtype=np.uint8)
+
+
+def simulate_coverage_reads(
+    num_reads: int, read_len: int, genome_bases: int, seed: int = 0
+) -> np.ndarray:
+    """Reads sampled from one random genome, half of them reverse
+    complemented: each genomic k-mer repeats ~num_reads*read_len/genome
+    times, so the sorted keys have long equal-key segments."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_bases, dtype=np.uint8)
+    starts = rng.integers(0, genome_bases - read_len + 1, size=num_reads)
+    idx = starts[:, None] + np.arange(read_len)[None, :]
+    reads = genome[idx]
+    flip = rng.random(num_reads) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    return reads

@@ -1,0 +1,67 @@
+"""Count-table snapshots in ``kmer_tpu``'s npz layout, so a table saved by
+either package loads in the other (counterpart of
+``kmer_tpu/utils/checkpoint.py``).
+
+Layout: ``hi``/``lo`` uint32, ``length`` int32, ``counts`` int64 of the
+live groups, and ``meta``, a JSON string with ``"version": 1``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+
+import numpy as np
+
+from ..ops.count import CountTable
+
+_FORMAT_VERSION = 1
+
+
+def atomic_savez(path: str, compress: bool = True, **arrays) -> None:
+    """np.savez[_compressed] with crash-safe replace semantics: write a
+    temp file in the same directory, fsync it and the directory entry,
+    then os.replace, so a crash mid-write never truncates an existing
+    snapshot."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            (np.savez_compressed if compress else np.savez)(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        dfd = os.open(d, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def save_table(table: CountTable, path: str, meta: dict | None = None) -> None:
+    """Snapshot a count table's live groups + metadata to an .npz file."""
+    hi, lo, length, counts = table.trim().to_numpy()
+    atomic_savez(
+        path,
+        hi=hi,
+        lo=lo,
+        length=length,
+        counts=counts.astype(np.int64),
+        meta=json.dumps({"version": _FORMAT_VERSION, **(meta or {})}),
+    )
+
+
+def load_table(path: str) -> tuple[CountTable, dict]:
+    """(host CountTable, meta) from a snapshot written by either package."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        table = CountTable.from_numpy(z["hi"], z["lo"], z["length"],
+                                      z["counts"].astype(np.int32))
+    return table, meta
