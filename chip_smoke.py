@@ -16,7 +16,17 @@ Phases, each of which must pass or the script exits nonzero:
    kernel's launch count must rise, and the table must equal an
    independent numpy oracle exactly;
 5. coverage reads and variable-length reads at k = 32 (with all-t reads)
-   and k = 31, each exact against the oracle.
+   and k = 31, each exact against the oracle;
+6. probes: ``python -m kmer_tpu_torch.probes``'s path (the ported Pallas
+   probes at the scripts' shapes, through the four probe kernels) with
+   every launch count set to 0 before it; each probe kernel must equal
+   its plain version and the scripts' numpy oracles, each count must
+   rise; then kernel vs plain at edge shapes (8-row tiles, shift 0, one
+   copy of one word, a copy that ends at the source's last word);
+7. bench: ``run_bench`` (fused and coverage), ``run_bench_stream`` and
+   ``run_chr_bench`` on the card, their distinct counts held against
+   phases 4 and 5 (and chr against a second route and, at 16M bases, a
+   numpy oracle); the segment-count kernel's count must rise.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -31,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -218,8 +229,9 @@ def kernel_cases(dev) -> dict:
     return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
 
 
-def main_path(dev, tmp: str) -> int:
-    """Counts the 1M x 150 bp FASTQ on the card; returns kernel launches."""
+def main_path(dev, tmp: str) -> tuple[int, int]:
+    """Counts the 1M x 150 bp FASTQ on the card; returns (kernel
+    launches, distinct k-mers)."""
     import torch
 
     from kmer_tpu_torch.kernels.segment_counts import segment_counts
@@ -261,10 +273,12 @@ def main_path(dev, tmp: str) -> int:
     wall = time.perf_counter() - t0
     log(f"main path, second run: {wall:.3f} s = {windows / wall:.1f} "
         "k-mers/s")
-    return launches
+    return launches, host.distinct()
 
 
-def edge_cases(dev, tmp: str) -> None:
+def edge_cases(dev, tmp: str) -> int:
+    """Coverage and variable-length reads; returns the coverage reads'
+    distinct count."""
     from kmer_tpu_torch.ops.extract import simulate_coverage_reads
     from kmer_tpu_torch.pipeline import count_file
 
@@ -275,6 +289,7 @@ def edge_cases(dev, tmp: str) -> None:
     check_table(table, oracle_keys(reads, K, canonical=True), K, "coverage")
     log(f"coverage reads: exact; distinct {table.distinct()}, total "
         f"{table.total()}")
+    coverage_distinct = table.distinct()
 
     rng = np.random.default_rng(SEED + 1)
     var = [rng.integers(0, 4, int(n), dtype=np.uint8)
@@ -292,6 +307,180 @@ def edge_cases(dev, tmp: str) -> None:
         log(f"variable-length reads, k={k} canonical={canonical} "
             f"width={width or 'auto'}: exact; distinct {table.distinct()}, "
             f"total {table.total()}")
+    return coverage_distinct
+
+
+# the probe kernels: the probe whose times stand for each in the kernels
+# line, and the rows of scripts/ it replaces
+PROBE_KERNELS = {
+    "tile_gather": ("gather_lanes(amplified)",
+                    "scripts/probe_pallas.py:34; scripts/probe_pallas2.py:26;"
+                    " scripts/probe_pallas3.py:55, 70, 86"),
+    "tile_stages": ("cmpex1_roll_lanes(amplified)",
+                    "scripts/probe_pallas.py:34, 113; "
+                    "scripts/probe_pallas2.py:26, 89, 143; "
+                    "scripts/probe_pallas3.py:32, 86; "
+                    "scripts/probe_r2.py:150, 164"),
+    "row_sort": ("inkernel_sort_lanes(random)", "scripts/probe_pallas2.py:26"),
+    "segment_copy": ("F_dma_G32768_SEG1024",
+                     "scripts/probe_pallas2.py:179; "
+                     "scripts/probe_pallas3.py:151; scripts/probe_r3a.py:160;"
+                     " scripts/probe_r3b.py:109, 128, 153, 179, 218"),
+}
+
+
+def probes(dev) -> list[dict]:
+    """The probes' path with the counts at 0 before it; returns the
+    kernels-line entries of the four probe kernels."""
+    from kmer_tpu_torch.kernels.row_sort import row_sort
+    from kmer_tpu_torch.kernels.segment_copy import segment_copy
+    from kmer_tpu_torch.kernels.tile_gather import tile_gather
+    from kmer_tpu_torch.kernels.tile_stages import tile_stages
+    from kmer_tpu_torch.probes import run_all
+
+    wrappers = {"tile_gather": tile_gather, "tile_stages": tile_stages,
+                "row_sort": row_sort, "segment_copy": segment_copy}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = run_all(dev, echo=log)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"probes: {len(records)} probes in {time.perf_counter() - t0:.1f} s;"
+        f" launches {launches}")
+    bad = [r.name for r in records if not r.correct]
+    check(not bad, f"every probe equals its plain version and oracle "
+          f"(not: {bad})")
+    entries = []
+    for name, (probe, replaces) in PROBE_KERNELS.items():
+        check(launches[name] > 0, f"the probes' path launched {name}")
+        rec = next(r for r in records if r.name == probe)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"kmer_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": float(max(r.max_abs_err for r in records
+                                     if r.kernel == name)),
+            "ms": rec.ms, "plain_ms": rec.plain_ms,
+        })
+    return entries
+
+
+def probe_edges(dev) -> None:
+    """Kernel == plain version at edge shapes, exactly."""
+    import torch
+
+    from kmer_tpu_torch.kernels.row_sort import row_sort, row_sort_reference
+    from kmer_tpu_torch.kernels.segment_copy import (
+        copy_plan, segment_copy, segment_copy_reference)
+    from kmer_tpu_torch.kernels.tile_gather import (
+        tile_gather, tile_gather_reference)
+    from kmer_tpu_torch.kernels.tile_stages import (
+        tile_stages, tile_stages_reference)
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def u32(shape):
+        a = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(a.view(np.int32)).to(dev)
+
+    def same(a, b, what):
+        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        check(all(torch.equal(x, y) for x, y in pairs),
+              f"kernel == plain at the edge: {what}")
+
+    x8 = u32((8, 128))
+    for axis, bound in ((1, 128), (0, 8)):
+        idx = torch.from_numpy(rng.integers(0, bound, (8, 128)).astype(
+            np.int32)).to(dev)
+        same(tile_gather(x8, idx, axis, steps=3, add=1),
+             tile_gather_reference(x8, idx, axis, steps=3, add=1),
+             f"tile_gather R=8 axis {axis}")
+    one = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    same(tile_gather(x8[:1, :1].contiguous(), one, None),
+         tile_gather_reference(x8[:1, :1].contiguous(), one, None),
+         "tile_gather, a one-word table")
+    lo8 = u32((8, 128))
+    for shifts in ([0], [0, 0, 0], [-1, 129, 7, -200]):
+        sched = torch.tensor(shifts, dtype=torch.int32, device=dev)
+        for op in ("take2", "min", "min_add1", "add1", "copy"):
+            lo = lo8 if op == "take2" else None
+            for axis in (1, 0):
+                same(tile_stages(x8, sched, op, axis, lo=lo),
+                     tile_stages_reference(x8, sched, op, axis, lo=lo),
+                     f"tile_stages {op} axis {axis} shifts {shifts}")
+    for shape in ((1, 128), (8, 128), (3, 1), (5, 1024)):
+        x = u32(shape)
+        same(row_sort(x), row_sort_reference(x), f"row_sort {shape}")
+    n = 1 << 20
+    src = u32((n,))
+    for g, seg, at_end in ((1, 1, False), (1, 1, True), (3, 1, True),
+                           (1, 1000, True), (257, 33, True)):
+        in_off = rng.integers(0, n - seg + 1, g)
+        if at_end:
+            in_off[-1] = n - seg  # the copy ends at the source's last word
+        for serial in (False, True):
+            plan = copy_plan(in_off, np.arange(g) * seg, seg, n, g * seg,
+                             serial=serial, device=dev)
+            same(segment_copy(src, plan), segment_copy_reference(src, plan),
+                 f"segment_copy G={g} SEG={seg} serial={serial}")
+    torch.cuda.synchronize()
+    log("probe kernels == plain at the edge shapes")
+
+
+def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
+    """The bench's modes on the card, held against phases 4 and 5; returns
+    the segment-count kernel's launches in them."""
+    import torch
+
+    from kmer_tpu_torch import bench
+    from kmer_tpu_torch.kernels.segment_counts import segment_counts
+    from kmer_tpu_torch.ops.count import count_windows
+    from kmer_tpu_torch.ops.extract import canonicalize, extract_windows
+
+    def show(result):
+        print(json.dumps(result), flush=True)
+        for name, ph in result["detail"].get("phases", {}).items():
+            log(f"  phase {name:>14}: {ph['ms']:.4f} ms, {ph['gb_per_s']} "
+                f"GB/s, {ph['pct_sol']}% of the published peak")
+        return result["detail"]["unique_kmers"]
+
+    segment_counts.launches = 0
+    common = dict(read_len=READ_LEN, k=K, canonical=True, seed=SEED,
+                  device=dev)
+    got = show(bench.run_bench(n_reads=MAIN_READS, **common))
+    check(got == main_distinct, f"fused bench distinct {got} == "
+          f"{main_distinct} (phase 4)")
+    got = show(bench.run_bench_stream(n_reads=MAIN_READS, **common))
+    check(got == main_distinct, f"stream bench distinct {got} == "
+          f"{main_distinct} (phase 4)")
+    got = show(bench.run_bench(n_reads=200_000, coverage_genome=1_000_000,
+                               **common))
+    check(got == coverage_distinct, f"coverage bench distinct {got} == "
+          f"{coverage_distinct} (phase 5)")
+
+    chr_k = 31
+    result = bench.run_chr_bench(k=chr_k, seed=SEED, device=dev)
+    got = show(result)
+    n_bases = result["detail"]["n_bases"]
+    codes = torch.from_numpy(bench.chr_codes(n_bases, SEED)).to(dev)
+    keys = canonicalize(extract_windows(codes, chr_k), chr_k)
+    del codes
+    second = count_windows(keys, None, chr_k).distinct()
+    del keys
+    check(got == second, f"chr bench distinct {got} == {second} "
+          "(extract_windows + count_windows)")
+    log(f"chr: {n_bases} bases, distinct {got} on both routes")
+
+    small = show(bench.run_chr_bench(n_bases=1 << 24, k=chr_k, seed=SEED,
+                                     device=dev))
+    codes = bench.chr_codes(1 << 24, SEED)
+    want = np.unique(oracle_keys(codes[None, :], chr_k, canonical=True)).size
+    check(small == want, f"chr bench at 2^24 bases: distinct {small} == "
+          f"{want} (numpy oracle)")
+    launches = segment_counts.launches
+    check(launches > 0, "the bench launched the segment-count kernel")
+    log(f"bench: exact on every mode; segment-count launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -302,22 +491,32 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from kmer_tpu_torch.kernels import (
+        row_sort, segment_copy, segment_counts, tile_gather, tile_stages)
     from kmer_tpu_torch.kernels.build import native_library
-    from kmer_tpu_torch.kernels.segment_counts import build
 
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    build()
-    native_library()
-    log(f"build: kernels and host parser in {time.perf_counter() - t0:.2f} s")
+    t_start = t0 = time.perf_counter()
+    builds = [m.build for m in (segment_counts, tile_gather, tile_stages,
+                                row_sort, segment_copy)] + [native_library]
+    with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each
+        for future in [pool.submit(b) for b in builds]:
+            future.result()
+    log(f"build: 5 kernel libraries and the host parser in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     timing = kernel_cases(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = main_path(dev, tmp)
-        edge_cases(dev, tmp)
+        launches, main_distinct = main_path(dev, tmp)
+        coverage_distinct = edge_cases(dev, tmp)
+    entries = probes(dev)
+    probe_edges(dev)
+    bench_on_card(dev, main_distinct, coverage_distinct)
+    log(f"chip_smoke: phases 1-7 passed in {time.perf_counter() - t_start:.1f}"
+        " s")
 
     print(json.dumps({"kernels": [{
         "name": "segment_counts",
@@ -326,7 +525,7 @@ def main() -> int:
         "replaces": "kmer_tpu/pallas/segment_counts.py:58",
         "launches": launches,
         **timing,
-    }]}))
+    }, *entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

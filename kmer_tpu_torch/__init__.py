@@ -7,7 +7,9 @@ takes an explicit ``device``; a CUDA tensor goes through the hand-written
 kernels (``kernels/``), a CPU tensor through their plain PyTorch versions.
 
 Ported so far: the single-shot file -> exact count table path
-(``pipeline.count_file``, ``python -m kmer_tpu_torch count``).
+(``pipeline.count_file``, ``python -m kmer_tpu_torch count``), the
+counting bench (``bench``, ``python -m kmer_tpu_torch bench``) and the
+Pallas probes of ``scripts/`` (``python -m kmer_tpu_torch.probes``).
 """
 
 from .errors import (  # noqa: F401

@@ -1,0 +1,305 @@
+"""Throughput benchmark of the port: canonical k-mer counting on one card.
+
+The counterpart of ``kmer_tpu/bench.py``'s counting modes, with the same
+JSON: metric names, units, ``vs_baseline`` against the same reference
+(Postgres HashAggregate counting at ~1.3e6 k-mers/s on one CPU core,
+BASELINE.md) and the same ``detail`` keys; ``detail.device`` is the
+card's name.
+
+* ``run_bench`` (fused; coverage with ``coverage_genome``): packed reads
+  -> unpack -> extract -> canonicalize -> ``count_windows`` (one
+  ``torch.sort`` of the sign-flipped int64 key + the segment-count
+  kernel).  The headline times it with the words already on the device;
+  the host-wire pass starts from the numpy words inside the timed
+  region.  Detail carries the extract / sort / segment_counts phases.
+* ``run_bench_stream``: phase-major windows straight from the packed
+  words of reads laid back to back, invalid slots folded into the
+  sentinel.
+* ``run_chr_bench``: one ~252 Mbp sequence, k = 31, phase-major.
+
+Every pass is timed warm and ends in a read of ``n_unique`` to the host,
+which waits for the device.  Each function takes an explicit ``device``:
+on ``cuda`` the count launches the kernel; on ``cpu`` it runs the plain
+versions, and then no number in the result is a device number.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .kernels.segment_counts import segment_counts
+from .native import device_unpack_rows, pack2bit_rows
+from .ops.count import count_windows
+from .ops.extract import (
+    canonicalize,
+    extract_from_words,
+    extract_windows_batch,
+    phase_major_valid,
+    simulate_coverage_reads,
+    simulate_reads,
+)
+from .packed import SIGN_FLIP
+from .utils.profiling import Profile, phase_timer, synchronize
+
+REFERENCE_KMERS_PER_S = 1.3e6
+
+# Published HBM peaks (NVIDIA's H100 data sheet), matched against
+# torch.cuda.get_device_name in order: the SXM part reports "H100 80GB
+# HBM3".
+_HBM_BY_NAME = [
+    ("H100 NVL", 3.9e12),
+    ("H100 PCIe", 2.0e12),
+    ("H100 80GB HBM3", 3.35e12),
+]
+
+
+def device_name(device: torch.device) -> str:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
+def hbm_bytes_per_s(device: torch.device | str = "cuda") -> float | None:
+    """Published device-memory peak of the card, or None on the CPU.  A
+    card with no entry raises: a %-of-peak against another card's figure
+    would be wrong."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    for frag, bw in _HBM_BY_NAME:
+        if frag in name:
+            return bw
+    raise ValueError(f"no published HBM peak for {name!r}; add it to "
+                     "kmer_tpu_torch/bench.py:_HBM_BY_NAME")
+
+
+def _sol(nbytes: float, dt: float, sol_bytes_per_s: float | None) -> dict:
+    return {
+        "gb_per_s": round(nbytes / dt / 1e9, 3),
+        "pct_sol": (None if sol_bytes_per_s is None
+                    else round(100 * nbytes / dt / sol_bytes_per_s, 3)),
+    }
+
+
+def _upload(words: np.ndarray, device: torch.device) -> torch.Tensor:
+    """uint32 words to the device as int32 bits (widened where used)."""
+    return torch.from_numpy(words.view(np.int32)).to(device)
+
+
+def run_bench(
+    n_reads: int = 1 << 20,
+    read_len: int = 150,
+    k: int = 21,
+    canonical: bool = True,
+    seed: int = 0,
+    coverage_genome: int | None = None,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Headline: unpack -> extract -> canonicalize -> count, words on the
+    device.  Reads are full length, so every window is valid: no mask, no
+    sentinel, exactly ``n_reads * (read_len - k + 1)`` keys are sorted.
+
+    ``coverage_genome``: sample the reads from one random genome of that
+    many bases (k-mers repeat ~n_reads*read_len/genome times) instead of
+    uniform-random reads.
+    """
+    device = torch.device(device)
+    total = n_reads * (read_len - k + 1)
+    if coverage_genome:
+        reads = simulate_coverage_reads(n_reads, read_len, coverage_genome,
+                                        seed=seed)
+    else:
+        reads = simulate_reads(n_reads, read_len, seed=seed)
+    words_host = pack2bit_rows(reads)
+    lengths = torch.full((n_reads,), read_len, dtype=torch.int64,
+                         device=device)
+
+    def extract_all(wire):
+        codes = device_unpack_rows(wire.to(torch.int64) & 0xFFFFFFFF,
+                                   read_len)
+        keys, _ = extract_windows_batch(codes, lengths, k)
+        if canonical:
+            keys = canonicalize(keys, k)
+        return keys.reshape(-1)
+
+    def count_all(wire):
+        return count_windows(extract_all(wire), None, k)
+
+    # host-wire pass: the numpy words cross to the device inside the clock
+    int(count_all(_upload(words_host, device)).n_unique)  # warm
+    t0 = time.perf_counter()
+    n_unique = int(count_all(_upload(words_host, device)).n_unique)
+    dt_wire = time.perf_counter() - t0
+
+    # headline: the words already on the device
+    wire = _upload(words_host, device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    n_unique2 = int(count_all(wire).n_unique)
+    dt_dev = time.perf_counter() - t0
+    if n_unique2 != n_unique:
+        raise RuntimeError(f"device-resident pass counted {n_unique2} "
+                           f"distinct, host-wire pass {n_unique}")
+
+    out = _result(total, dt_dev, n_reads, read_len, k, canonical, 1,
+                  n_unique, "coverage" if coverage_genome else "fused",
+                  device)
+    detail = out["detail"]
+    if coverage_genome:
+        detail["genome_bases"] = coverage_genome
+        detail["mean_kmer_multiplicity"] = round(total / n_unique, 2)
+    detail["host_wire_kmers_per_s"] = round(total / dt_wire, 1)
+    detail["host_wire_wall_s"] = round(dt_wire, 6)
+
+    # Phases on the same data, each warm and synchronised.  kmer_tpu
+    # publishes them only for 16 < k <= 24, the one k tier its (hi,
+    # lo16) lane model fits; the port has one int64 key at every k, so
+    # the same model holds at every k.  Byte models are the least
+    # device-memory traffic, read + write, at 8 bytes per key:
+    #   extract: the words in, the keys out;
+    #   sort: the keys in and out (the xor pass, the int64 indices torch
+    #     writes beside them and the sort's own passes are extra);
+    #   segment_counts: the sorted keys in, int32 counts out.
+    keys = extract_all(wire)
+    flipped = torch.sort(keys ^ SIGN_FLIP).values
+    sol_bw = hbm_bytes_per_s(device)
+    prof = Profile()
+    for name, fn, nbytes in [
+        ("extract", lambda: extract_all(wire), wire.numel() * 4 + total * 8),
+        # the sort count_windows runs (ops/count.py)
+        ("sort", lambda: torch.sort(keys ^ SIGN_FLIP), 2 * total * 8),
+        ("segment_counts", lambda: segment_counts(flipped, None),
+         total * 8 + total * 4),
+    ]:
+        fn()
+        synchronize(device)
+        with phase_timer(prof, name, nbytes=nbytes, sync=device):
+            fn()
+    detail["phases"] = {
+        name: {"ms": round(dt * 1e3, 4), **_sol(prof.bytes[name], dt, sol_bw)}
+        for name, dt in prof.phases.items()
+    }
+    detail["phases_sum_ms"] = round(sum(prof.phases.values()) * 1e3, 4)
+    detail["hbm_sol_bytes_per_s"] = sol_bw
+    return out
+
+
+def run_bench_stream(
+    n_reads: int = 1 << 20,
+    read_len: int = 150,
+    k: int = 21,
+    canonical: bool = True,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Phase-major variant: windows straight from the packed words of the
+    reads laid back to back (no unpack: 4 bytes in per 16 bases).  Slots
+    whose window crosses a read's end, or the stream's, fold into the
+    sentinel, so ``16 * n_words`` slots are sorted."""
+    device = torch.device(device)
+    total = n_reads * (read_len - k + 1)
+    n_bases = n_reads * read_len
+    if n_bases % 16:
+        raise ValueError(f"the base count {n_bases} must be a multiple of "
+                         "16 (whole words)")
+    nw_total = n_bases // 16
+    words_host = pack2bit_rows(
+        simulate_reads(n_reads, read_len, seed=seed).reshape(1, -1))[0]
+
+    def count_all(wire):
+        keys = extract_from_words(wire, k)
+        if canonical:
+            keys = canonicalize(keys, k)
+        valid = phase_major_valid(nw_total, read_len, n_reads, k, device)
+        return count_windows(keys.reshape(-1), valid.reshape(-1), k)
+
+    wire = _upload(words_host, device)
+    int(count_all(wire).n_unique)  # warm
+    t0 = time.perf_counter()
+    n_unique = int(count_all(wire).n_unique)
+    dt = time.perf_counter() - t0
+    return _result(total, dt, n_reads, read_len, k, canonical, 1, n_unique,
+                   "stream", device)
+
+
+def chr_codes(n_bases: int, seed: int) -> np.ndarray:
+    """The uniform-random sequence of ``run_chr_bench`` (uint8 codes)."""
+    return np.random.default_rng(seed).integers(0, 4, n_bases, dtype=np.uint8)
+
+
+def run_chr_bench(
+    n_bases: int = 15 << 24,  # ~251.7 Mbp, human chr1 scale, word-aligned
+    k: int = 31,
+    canonical: bool = True,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Chromosome-scale counting of one sequence (BASELINE configs[4]):
+    phase-major extraction from the packed words + the count, with the
+    words already on the device."""
+    device = torch.device(device)
+    n_bases = (n_bases // 16) * 16
+    total_windows = n_bases - k + 1
+    nw = n_bases // 16
+    wire = _upload(pack2bit_rows(chr_codes(n_bases, seed)[None, :])[0],
+                   device)
+
+    def count_all(w):
+        keys = extract_from_words(w, k)
+        if canonical:
+            keys = canonicalize(keys, k)
+        # one "read" of n_bases: valid iff p <= n_bases - k
+        valid = phase_major_valid(nw, n_bases, 1, k, device)
+        return count_windows(keys.reshape(-1), valid.reshape(-1), k)
+
+    int(count_all(wire).n_unique)  # warm
+    t0 = time.perf_counter()
+    n_unique = int(count_all(wire).n_unique)
+    dt = time.perf_counter() - t0
+
+    kmers_per_s = total_windows / dt
+    return {
+        "metric": "chr_scale_kmers_counted_per_s_chip",
+        "value": round(kmers_per_s, 1),
+        "unit": "kmers/s",
+        "vs_baseline": round(kmers_per_s / REFERENCE_KMERS_PER_S, 2),
+        "detail": {
+            "mode": "chr",
+            "n_bases": n_bases,
+            "k": k,
+            "canonical": canonical,
+            "chunks": 1,
+            "wall_s": round(dt, 6),
+            "total_kmers": total_windows,
+            "unique_kmers": n_unique,
+            "device": device_name(device),
+        },
+    }
+
+
+def _result(total, dt, n_reads, read_len, k, canonical, n_chunks, n_unique,
+            mode, device):
+    kmers_per_s = total / dt
+    return {
+        "metric": "canonical_kmers_counted_per_s_chip",
+        "value": round(kmers_per_s, 1),
+        "unit": "kmers/s",
+        "vs_baseline": round(kmers_per_s / REFERENCE_KMERS_PER_S, 2),
+        "detail": {
+            "mode": mode,
+            "n_reads": n_reads,
+            "read_len": read_len,
+            "k": k,
+            "canonical": canonical,
+            "chunks": n_chunks,
+            "wall_s": round(dt, 6),
+            "total_kmers": total,
+            "unique_kmers": n_unique,
+            "device": device_name(device),
+        },
+    }

@@ -2,16 +2,23 @@
 
   python -m kmer_tpu_torch count --input reads.fastq -k 21 --canonical
                                  [--top 10] [--device cuda]
+  python -m kmer_tpu_torch bench [--mode fused|stream|chr] [--reads N]
+                                 [-k 21] [--trace DIR] [--device cuda]
 
 The ``count`` subcommand takes ``kmer_tpu count``'s flags and prints the
 same output for FASTA/FASTQ input: one ``kmer<TAB>count`` line per group
 on stdout, by descending count and then ascending key, and a
 ``# N distinct, T total`` line on stderr.
+
+The ``bench`` subcommand takes ``kmer_tpu bench``'s flags and prints the
+one-line result JSON as the last line of stdout.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import sys
 
 import numpy as np
@@ -71,6 +78,44 @@ def _cmd_count(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    from . import bench
+
+    if args.queries or args.mode in ("shq", "pattern"):
+        raise NotImplementedError(
+            "the query, pattern and shq bench modes need the index and the "
+            "predicates, which are not ported yet (ROADMAP.md §1 item 8)")
+    if args.no_pallas:
+        raise NotImplementedError(
+            "--no-pallas is not ported: on a CUDA device the count always "
+            "launches the segment-count kernel (ROADMAP.md §1)")
+    trace = contextlib.nullcontext()
+    if args.trace:
+        from torch.profiler import (
+            ProfilerActivity, profile, tensorboard_trace_handler)
+
+        activities = [ProfilerActivity.CPU]
+        if args.device.startswith("cuda"):
+            activities.append(ProfilerActivity.CUDA)
+        trace = profile(activities=activities,
+                        on_trace_ready=tensorboard_trace_handler(args.trace))
+    canonical = not args.no_canonical
+    with trace:
+        if args.mode == "chr":
+            result = bench.run_chr_bench(device=args.device)
+        elif args.mode == "stream":
+            result = bench.run_bench_stream(
+                n_reads=args.reads, read_len=args.read_len, k=args.k,
+                canonical=canonical, device=args.device)
+        else:
+            result = bench.run_bench(
+                n_reads=args.reads, read_len=args.read_len, k=args.k,
+                canonical=canonical, coverage_genome=args.coverage_genome,
+                device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kmer_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -122,6 +167,32 @@ def main(argv=None) -> int:
         "PyTorch versions of the kernels)",
     )
     c.set_defaults(fn=_cmd_count)
+
+    b = sub.add_parser("bench", help="counting throughput benchmark (one card)")
+    b.add_argument("--reads", type=int, default=1 << 20)
+    b.add_argument("--read-len", type=int, default=150)
+    b.add_argument("-k", type=int, default=21)
+    b.add_argument("--no-canonical", action="store_true")
+    b.add_argument("--no-pallas", action="store_true",
+                   help="kmer_tpu's switch to its XLA segment counts; not "
+                   "ported (raises)")
+    b.add_argument("--mode",
+                   choices=["fused", "stream", "chr", "shq", "pattern"],
+                   default="fused",
+                   help="shq and pattern are not ported yet (raise)")
+    b.add_argument("--queries", action="store_true",
+                   help="index lookups instead of counting; not ported yet "
+                   "(raises)")
+    b.add_argument("--trace", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the run to DIR")
+    b.add_argument("--coverage-genome", type=int, default=None,
+                   metavar="BASES",
+                   help="sample reads from one random genome of this size "
+                   "(realistic duplication) instead of uniform-random")
+    b.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                   "PyTorch versions of the kernels)")
+    b.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -16,6 +16,7 @@ load a half-written library.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import shutil
 import subprocess
@@ -68,6 +69,42 @@ def cuda_library(src_name: str) -> str:
     stem = os.path.splitext(src_name)[0]
     return build_library(os.path.join(CSRC_DIR, src_name), f"lib{stem}.so",
                          [_nvcc(), *NVCC_FLAGS])
+
+
+class KernelLibrary:
+    """A ``csrc/<stem>.cu`` library loaded with ctypes.
+
+    Every exported launch function takes pointers, integers and the
+    stream, launches on that stream without synchronising and returns
+    ``cudaGetLastError()``; ``<stem>_error_string`` names an error code.
+    ``signatures`` maps each launch function to its ctypes argtypes.
+    The library builds and loads at the first ``launch``, never at import.
+    """
+
+    def __init__(self, stem: str, signatures: dict[str, list]):
+        self.stem = stem
+        self.signatures = signatures
+        self._lib = None
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(cuda_library(f"{self.stem}.cu"))
+            err = getattr(lib, f"{self.stem}_error_string")
+            err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+            for name, argtypes in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            self._lib = lib
+        return self._lib
+
+    def launch(self, name: str, *args) -> None:
+        """Calls ``name(*args)``; a nonzero CUDA error code raises."""
+        lib = self.load()
+        err = getattr(lib, name)(*args)
+        if err:
+            msg = getattr(lib, f"{self.stem}_error_string")(err).decode()
+            raise RuntimeError(f"{self.stem} kernel launch failed: {msg} "
+                               f"({err})")
 
 
 def native_library() -> str:

@@ -27,27 +27,20 @@ import ctypes
 import torch
 
 from ..packed import as_int64
-from .build import cuda_library
+from .build import KernelLibrary
+from .words import stream_of
 
-_lib = None
+_LIB = KernelLibrary("segment_counts", {
+    "segment_counts_tile": [],
+    "segment_counts_launch": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+})
 
 
 def build() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_library("segment_counts.cu"))
-        lib.segment_counts_tile.restype = ctypes.c_int
-        lib.segment_counts_tile.argtypes = []
-        lib.segment_counts_error_string.restype = ctypes.c_char_p
-        lib.segment_counts_error_string.argtypes = [ctypes.c_int]
-        lib.segment_counts_launch.restype = ctypes.c_int
-        lib.segment_counts_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
-        _lib = lib
-    return _lib
+    return _LIB.load()
 
 
 def _check(keys: torch.Tensor) -> None:
@@ -94,20 +87,13 @@ def segment_counts(keys: torch.Tensor, sentinel: int | None = None
     n_unique = torch.empty((), dtype=torch.int32, device=keys.device)
     if n == 0:
         return counts, n_unique.zero_()
-    lib = build()
-    tiles = -(-n // lib.segment_counts_tile())
+    tiles = -(-n // build().segment_counts_tile())
     scratch = torch.empty(2 * tiles, dtype=torch.int32, device=keys.device)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.segment_counts_launch(
-            keys.data_ptr(), n, int(sentinel is not None),
-            0 if sentinel is None else as_int64(sentinel),
-            counts.data_ptr(), n_unique.data_ptr(), scratch.data_ptr(),
-            stream)
-    if err:
-        raise RuntimeError(
-            "segment_counts kernel launch failed: "
-            f"{lib.segment_counts_error_string(err).decode()} ({err})")
+    _LIB.launch("segment_counts_launch", keys.data_ptr(), n,
+                int(sentinel is not None),
+                0 if sentinel is None else as_int64(sentinel),
+                counts.data_ptr(), n_unique.data_ptr(), scratch.data_ptr(),
+                stream_of(keys))
     segment_counts.launches += 1
     return counts, n_unique
 

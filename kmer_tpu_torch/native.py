@@ -142,6 +142,19 @@ def rows_packed(codes: np.ndarray, offsets: np.ndarray, width: int,
     return words, out_lens
 
 
+def pack2bit_rows(codes: np.ndarray) -> np.ndarray:
+    """[B, L] 2-bit codes -> [B, ceil(L/16)] uint32 words, 16 bases a word
+    left-aligned (base j at bits ``30 - 2*(j % 16)``; the tail zero-padded).
+    Plain numpy on the host; the layout of ``kn_rows_packed``'s rows."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint32)
+    b, n = codes.shape
+    nw = (n + 15) // 16
+    if nw * 16 != n:
+        codes = np.pad(codes, ((0, 0), (0, nw * 16 - n)))
+    shifts = (30 - 2 * np.arange(16, dtype=np.uint32)).astype(np.uint32)
+    return (codes.reshape(b, nw, 16) << shifts).sum(axis=2, dtype=np.uint32)
+
+
 def device_unpack_rows(words: torch.Tensor, length: int) -> torch.Tensor:
     """[B, nw] packed words (int64 holding uint32 values) -> [B, length]
     int64 2-bit codes, on the words' device.  Base j of a row sits at

@@ -19,6 +19,27 @@ from ..errors import InvalidKmerLengthError
 from ..packed import SIGN_FLIP
 
 
+def _top_mask(k: int) -> int:
+    """The int64 mask of a key's top 2k bits (all ones for k = 32)."""
+    return -(1 << (64 - 2 * k))
+
+
+def extract_windows(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """codes [n] 2-bit codes -> int64 keys [n-k+1] of every window.
+
+    Window i packs codes[i:i+k] left-aligned (base j at bits 62-2j).
+    """
+    n = codes.shape[0]
+    m = n - k + 1
+    if not 1 <= k <= MAX_K or m <= 0:
+        raise InvalidKmerLengthError()
+    codes = codes.to(torch.int64)
+    keys = torch.zeros(m, dtype=torch.int64, device=codes.device)
+    for j in range(k):
+        keys |= codes[j: j + m] << (62 - 2 * j)
+    return keys
+
+
 def extract_windows_batch(codes: torch.Tensor, lengths: torch.Tensor,
                           k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched extraction over padded reads.
@@ -72,6 +93,47 @@ def canonicalize(keys: torch.Tensor, k: int) -> torch.Tensor:
     """min(key, revcomp(key)) in unsigned key order, elementwise."""
     rc = revcomp_packed(keys, k)
     return torch.where((keys ^ SIGN_FLIP) <= (rc ^ SIGN_FLIP), keys, rc)
+
+
+# Phase-major extraction straight from the 2-bit wire words (16 bases a
+# word, left-aligned), without unpacking to codes.  The window at flat
+# base position p = 16w + r spans words w..w+2: it is the 64 bits that
+# start 2r bits into word w, so for a fixed phase r every window is the
+# same shift of (word w, w+1, w+2), and the keys come out as [16, nw].
+
+
+def extract_from_words(words: torch.Tensor, k: int) -> torch.Tensor:
+    """words [nw] (uint32 values, as int32 bits, int64 or uint32) -> int64
+    keys [16, nw]: the window at p = 16w + r is ``keys[r, w]``.  Windows
+    whose tail runs past the stream's end read zeros (callers mask
+    validity)."""
+    if not 1 <= k <= MAX_K:
+        raise InvalidKmerLengthError()
+    w0 = words.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    nw = w0.numel()
+    pad = w0.new_zeros(2)
+    w1 = torch.cat([w0[1:], pad])[:nw]
+    w2 = torch.cat([w0[2:], pad])[:nw]
+    w01 = (w0 << 32) | w1  # the 64 bits that start at word w
+    mask = _top_mask(k)
+    keys = torch.empty((16, nw), dtype=torch.int64, device=w0.device)
+    keys[0] = w01 & mask
+    for r in range(1, 16):
+        # w2 is non-negative, so its arithmetic shift needs no mask
+        keys[r] = ((w01 << 2 * r) | (w2 >> (32 - 2 * r))) & mask
+    return keys
+
+
+def phase_major_valid(n_words: int, read_len: int, n_reads: int, k: int,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """Validity [16, n_words] of phase-major windows over reads of
+    ``read_len`` bases concatenated back to back: p = 16w + r is a valid
+    window start iff ``p % read_len <= read_len - k`` and
+    ``p <= n_reads * read_len - k``."""
+    w = torch.arange(n_words, dtype=torch.int64, device=device)[None, :]
+    r = torch.arange(16, dtype=torch.int64, device=device)[:, None]
+    p = 16 * w + r
+    return ((p % read_len) <= (read_len - k)) & (p <= n_reads * read_len - k)
 
 
 def simulate_reads(num_reads: int, read_len: int, seed: int = 0) -> np.ndarray:

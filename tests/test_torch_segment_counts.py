@@ -4,7 +4,7 @@
 wrapper) must return the Pallas kernel's ``counts`` slot for slot and its
 ``n_unique``, on the cases of tests/test_pallas.py.  Integers, so every
 comparison is exact.  The CUDA kernel itself is compared with the plain
-version on the card (chip_smoke.py and the ``gpu`` test below).
+version on the card (chip_smoke.py and tests/test_torch_gpu.py).
 """
 
 import jax.numpy as jnp
@@ -100,19 +100,3 @@ def test_empty_input():
 def test_wrapper_rejects_bad_input(bad, err):
     with pytest.raises(err):
         segment_counts(bad)
-
-
-@pytest.mark.gpu
-def test_kernel_matches_reference_on_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    for name in CASES:
-        hi, lo, sent = _case(name)
-        keys = torch.from_numpy(key_from_hi_lo(*_sorted(hi, lo)).copy())
-        keys = keys.cuda()
-        sentinel = None if sent is None else (sent[0] << 32) | sent[1]
-        before = segment_counts.launches
-        got, got_u = segment_counts(keys, sentinel)
-        ref, ref_u = segment_counts_reference(keys, sentinel)
-        assert segment_counts.launches == before + 1
-        assert torch.equal(got, ref) and int(got_u) == int(ref_u), name
