@@ -26,7 +26,17 @@ Phases, each of which must pass or the script exits nonzero:
 7. bench: ``run_bench`` (fused and coverage), ``run_bench_stream`` and
    ``run_chr_bench`` on the card, their distinct counts held against
    phases 4 and 5 (and chr against a second route and, at 16M bases, a
-   numpy oracle); the segment-count kernel's count must rise.
+   numpy oracle); the segment-count kernel's count must rise;
+8. the streaming fold of ``count_file``, each case with the kernel's count
+   set to 0 before it and required to rise: (a) a sequencing run, 10M x
+   150 bp reads at 30x over a 50 Mbp genome (a 3.1 GB FASTQ), routed
+   automatically to the fold, growing from 2^24 slots, exact against an
+   oracle built from the genome; (b) phase 4's file through the fold
+   (~130M live rows, 2^28 slots), equal to phase 4's table; (c) phase 5's
+   file under a 2^19-slot budget with spills to a directory, and a
+   checkpointed half run resumed to the end, both equal to phase 5's
+   table.  Prints per-batch count, compaction and merge times and the
+   peak device memory.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -70,28 +80,36 @@ def card_line() -> str:
 # --- data and the numpy oracle -------------------------------------------
 
 
+LETTERS = np.frombuffer(b"ACGT", np.uint8)
+
+
+def fastq_records(reads: np.ndarray, first: int = 0) -> bytes:
+    """FASTQ records of fixed-length 2-bit code reads [n, L], named
+    ``r<7 digits>`` from ``first`` on."""
+    n, length = reads.shape
+    head = 9  # "@r" + 7 digits
+    rec = np.empty((n, head + 1 + length + 3 + length + 1), np.uint8)
+    rec[:, 0], rec[:, 1] = ord("@"), ord("r")
+    idx = np.arange(first, first + n)
+    for d in range(7):
+        rec[:, 2 + d] = ord("0") + (idx // 10 ** (6 - d)) % 10
+    rec[:, head] = ord("\n")
+    rec[:, head + 1: head + 1 + length] = LETTERS[reads]
+    q = head + 1 + length
+    rec[:, q: q + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, q + 3: q + 3 + length] = ord("I")
+    rec[:, -1] = ord("\n")
+    return rec.tobytes()
+
+
 def write_fastq(path: str, reads: list[np.ndarray] | np.ndarray) -> None:
     """FASTQ of 2-bit code reads; fixed-length reads are written in bulk."""
-    letters = np.frombuffer(b"ACGT", np.uint8)
     with open(path, "wb") as f:
         if isinstance(reads, np.ndarray):
-            n, length = reads.shape
-            head = 9  # "@r" + 7 digits
-            rec = np.empty((n, head + 1 + length + 3 + length + 1), np.uint8)
-            rec[:, 0], rec[:, 1] = ord("@"), ord("r")
-            idx = np.arange(n)
-            for d in range(7):
-                rec[:, 2 + d] = ord("0") + (idx // 10 ** (6 - d)) % 10
-            rec[:, head] = ord("\n")
-            rec[:, head + 1: head + 1 + length] = letters[reads]
-            q = head + 1 + length
-            rec[:, q: q + 3] = np.frombuffer(b"\n+\n", np.uint8)
-            rec[:, q + 3: q + 3 + length] = ord("I")
-            rec[:, -1] = ord("\n")
-            f.write(rec.tobytes())
+            f.write(fastq_records(reads))
             return
         for i, r in enumerate(reads):
-            seq = letters[r].tobytes()
+            seq = LETTERS[r].tobytes()
             f.write(b"@v%d\n%s\n+\n%s\n" % (i, seq, b"I" * len(r)))
 
 
@@ -229,9 +247,9 @@ def kernel_cases(dev) -> dict:
     return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
 
 
-def main_path(dev, tmp: str) -> tuple[int, int]:
+def main_path(dev, tmp: str):
     """Counts the 1M x 150 bp FASTQ on the card; returns (kernel
-    launches, distinct k-mers)."""
+    launches, the FASTQ's path, its oracle-checked host table)."""
     import torch
 
     from kmer_tpu_torch.kernels.segment_counts import segment_counts
@@ -273,23 +291,23 @@ def main_path(dev, tmp: str) -> tuple[int, int]:
     wall = time.perf_counter() - t0
     log(f"main path, second run: {wall:.3f} s = {windows / wall:.1f} "
         "k-mers/s")
-    return launches, host.distinct()
+    return launches, path, host
 
 
-def edge_cases(dev, tmp: str) -> int:
-    """Coverage and variable-length reads; returns the coverage reads'
-    distinct count."""
+def edge_cases(dev, tmp: str):
+    """Coverage and variable-length reads; returns the coverage FASTQ's
+    path and its oracle-checked host table."""
     from kmer_tpu_torch.ops.extract import simulate_coverage_reads
     from kmer_tpu_torch.pipeline import count_file
 
     reads = simulate_coverage_reads(200_000, READ_LEN, 1_000_000, seed=SEED)
-    path = os.path.join(tmp, "coverage.fastq")
-    write_fastq(path, reads)
-    table = count_file(path, "fastq", K, canonical=True, device=dev)
+    cov_path = os.path.join(tmp, "coverage.fastq")
+    write_fastq(cov_path, reads)
+    table = count_file(cov_path, "fastq", K, canonical=True, device=dev)
     check_table(table, oracle_keys(reads, K, canonical=True), K, "coverage")
     log(f"coverage reads: exact; distinct {table.distinct()}, total "
         f"{table.total()}")
-    coverage_distinct = table.distinct()
+    coverage = table.trim()
 
     rng = np.random.default_rng(SEED + 1)
     var = [rng.integers(0, 4, int(n), dtype=np.uint8)
@@ -307,7 +325,7 @@ def edge_cases(dev, tmp: str) -> int:
         log(f"variable-length reads, k={k} canonical={canonical} "
             f"width={width or 'auto'}: exact; distinct {table.distinct()}, "
             f"total {table.total()}")
-    return coverage_distinct
+    return cov_path, coverage
 
 
 # the probe kernels: the probe whose times stand for each in the kernels
@@ -483,6 +501,185 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
     return launches
 
 
+# --- phase 8: the streaming fold ---------------------------------------------
+
+# (a): a sequencing run at 30x over one genome
+GENOME_BASES, RUN_READS = 50_000_000, 10_000_000
+RUN_CHUNK = 250_000  # reads written at a time
+BUDGET = 1 << 19  # (c): the device slot budget
+PER_BATCH = ("extract", "count", "compact", "merge")  # the fold's phases
+
+
+def write_genome_run(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Reads sampled from one random genome, half reverse-complemented
+    (as ``simulate_coverage_reads`` draws them), written a chunk at a
+    time so the host never holds all reads; returns (genome, starts)."""
+    rng = np.random.default_rng(SEED + 8)
+    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
+    starts = rng.integers(0, GENOME_BASES - READ_LEN + 1, RUN_READS)
+    flip = rng.random(RUN_READS) < 0.5
+    windows = np.lib.stride_tricks.sliding_window_view(genome, READ_LEN)
+    with open(path, "wb") as f:
+        for s in range(0, RUN_READS, RUN_CHUNK):
+            reads = windows[starts[s: s + RUN_CHUNK]]  # a copy
+            fl = flip[s: s + RUN_CHUNK]
+            reads[fl] = 3 - reads[fl, ::-1]
+            f.write(fastq_records(reads, first=s))
+    return genome, starts
+
+
+def genome_oracle(genome: np.ndarray, starts: np.ndarray, k: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """(sorted canonical keys, counts) of the reads, from the genome: each
+    genome window's canonical key weighted by the reads that cover it (a
+    difference array over the read starts), grouped with numpy."""
+    n_win = genome.size - k + 1
+    cum = np.concatenate([[0], np.cumsum(np.bincount(starts,
+                                                     minlength=n_win))])
+    p = np.arange(n_win)
+    weight = cum[p + 1] - cum[np.maximum(p - (READ_LEN - k), 0)]
+    keys = oracle_keys(genome[None, :], k, canonical=True)
+    keep = weight > 0
+    keys, weight = keys[keep], weight[keep]
+    order = np.argsort(keys)
+    keys, weight = keys[order], weight[order]
+    head = np.ones(keys.size, bool)
+    head[1:] = keys[1:] != keys[:-1]
+    first = np.flatnonzero(head)
+    return keys[first], np.add.reduceat(weight, first)
+
+
+def check_wide(table, keys: np.ndarray, counts: np.ndarray, k: int,
+               what: str) -> None:
+    """A fold's WideCounts must equal (keys, counts) exactly."""
+    from kmer_tpu_torch.ops.wide import WideCounts
+    from kmer_tpu_torch.packed import key_from_hi_lo
+
+    check(isinstance(table, WideCounts), f"{what}: took the fold")
+    t = table.trim()
+    hi, lo, length, _, _ = t.to_numpy()
+    got = key_from_hi_lo(hi, lo).view(np.uint64)
+    check(np.array_equal(got, keys), f"{what}: keys equal")
+    check(np.array_equal(t.counts64(), counts.astype(np.int64)),
+          f"{what}: 64-bit counts equal")
+    check(bool((length == k).all()), f"{what}: every length is k")
+    check(table.distinct() == keys.size, f"{what}: n_unique")
+
+
+def fold_run(dev, what: str, windows: int, path: str, **kw):
+    """``count_file`` through the fold with the phases timed and the
+    kernel's count set to 0 before; returns (table, stats, launches)."""
+    import torch
+
+    from kmer_tpu_torch.kernels.segment_counts import segment_counts
+    from kmer_tpu_torch.pipeline import count_file
+    from kmer_tpu_torch.utils.logging import StatsCounters
+    from kmer_tpu_torch.utils.profiling import Profile
+
+    stats, profile = StatsCounters(), Profile()
+    torch.cuda.reset_peak_memory_stats(dev)
+    segment_counts.launches = 0
+    t0 = time.perf_counter()
+    table = count_file(path, "fastq", K, canonical=True, stats=stats,
+                       profile=profile, device=dev, **kw)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = segment_counts.launches
+    check(launches > 0, f"{what}: the fold launched the segment-count kernel")
+    per = {name: 1e3 * sec / max(stats.batches, 1)
+           for name, sec in profile.phases.items() if name in PER_BATCH}
+    once = {name: sec for name, sec in profile.phases.items()
+            if name not in PER_BATCH}
+    log(f"{what}: count_file {wall:.3f} s = {windows / wall:.1f} k-mers/s "
+        f"(phases timed with a synchronize each); {stats.batches} batches, "
+        f"kernel launches {launches}, growths {stats.grows}, spills "
+        f"{stats.spills}, final slots {table.capacity}, distinct "
+        f"{table.distinct()}, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    log(f"{what}: per batch (ms): " + ", ".join(
+        f"{name} {ms:.3f}" for name, ms in per.items()) + "; in all (s): "
+        + ", ".join(f"{name} {sec:.3f}" for name, sec in once.items()))
+    return table, stats, launches
+
+
+def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
+               cov_table) -> dict:
+    """Phase 8; returns the kernel's launches by case."""
+    from kmer_tpu_torch.ops import wide
+    from kmer_tpu_torch.pipeline import (
+        PipelineCheckpoint, count_batches_pipelined, file_batch_feed)
+
+    launches = {}
+    # (a) a sequencing run, automatic routing
+    path = os.path.join(tmp, "run.fastq")
+    t0 = time.perf_counter()
+    genome, starts = write_genome_run(path)
+    log(f"8a: wrote {os.path.getsize(path)} bytes of FASTQ ({RUN_READS} "
+        f"reads x {READ_LEN} bp from a {GENOME_BASES}-base genome) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    windows = RUN_READS * (READ_LEN - K + 1)
+    table, stats, launches["8a"] = fold_run(dev, "8a", windows, path)
+    check(stats.grows > 0 and table.capacity > 1 << 24,
+          "8a: the capacity grew from 2^24")
+    t0 = time.perf_counter()
+    rows = sum(int((ln > 0).sum()) for _, ln in
+               file_batch_feed(path, "fastq", K, None, None)[0])
+    log(f"8a: the host feed alone (parse + pack, no device): "
+        f"{time.perf_counter() - t0:.3f} s for {rows} rows")
+    t0 = time.perf_counter()
+    keys, counts = genome_oracle(genome, starts, K)
+    check(int(counts.sum()) == windows, "8a: the oracle counts every window")
+    check_wide(table, keys, counts, K, "8a")
+    log(f"8a: exact against the genome oracle ({time.perf_counter() - t0:.1f}"
+        f" s); distinct {keys.size}, total {windows}")
+    del table, keys, counts, genome, starts
+    os.unlink(path)
+
+    # (b) state at size: phase 4's file through the fold
+    windows = MAIN_READS * (READ_LEN - K + 1)
+    table, stats, launches["8b"] = fold_run(dev, "8b", windows, main_fastq,
+                                            single_shot=False)
+    want_keys = main_table.keys.numpy().view(np.uint64)
+    check_wide(table, want_keys, main_table.counts.numpy(), K, "8b")
+    log(f"8b: equal to phase 4's table; {table.distinct()} live rows in "
+        f"{table.capacity} slots")
+    del table
+
+    # (c) spill, merge and resume under a budget
+    windows = cov_table.total()
+    want_keys = cov_table.keys.numpy().view(np.uint64)
+    want_counts = cov_table.counts.numpy()
+    spills = os.path.join(tmp, "spills")
+    table, stats, launches["8c"] = fold_run(
+        dev, "8c", windows, cov_fastq, batch=4096, max_capacity=BUDGET,
+        spill_dir=spills)
+    check(stats.spills > 0, "8c: at least one spill")
+    check((stats.spills + 1) * BUDGET <= wide._DEVICE_MERGE_MAX_ROWS,
+          "8c: the spill runs merge on the device")
+    check_wide(table, want_keys, want_counts, K, "8c, spills")
+    feed, batch, width, _ = file_batch_feed(cov_fastq, "fastq", K, 4096, None)
+    batches = list(feed)
+    ck = os.path.join(tmp, "ck.npz")
+    resumed = os.path.join(tmp, "resumed")
+    count_batches_pipelined(
+        iter(batches[: len(batches) // 2]), K, canonical=True,
+        capacity=BUDGET, max_capacity=BUDGET, spill_dir=resumed,
+        ckpt=PipelineCheckpoint(ck), ckpt_every_s=0.0, device=dev)
+    done = PipelineCheckpoint(ck).batches_done
+    check(done == len(batches) // 2, "8c: the half run checkpointed")
+    table, stats, n = fold_run(
+        dev, "8c resumed", windows, cov_fastq, batch=4096, width=width,
+        max_capacity=BUDGET, spill_dir=resumed, ckpt_path=ck)
+    launches["8c"] += n
+    check(stats.batches == len(batches) - done, "8c: the resume skipped "
+          "the checkpointed batches")
+    check_wide(table, want_keys, want_counts, K, "8c, resumed")
+    log(f"8c: spilled and resumed runs equal phase 5's table "
+        f"({len(batches)} batches, resumed at {done})")
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -510,12 +707,16 @@ def main() -> int:
 
     timing = kernel_cases(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, main_distinct = main_path(dev, tmp)
-        coverage_distinct = edge_cases(dev, tmp)
-    entries = probes(dev)
-    probe_edges(dev)
-    bench_on_card(dev, main_distinct, coverage_distinct)
-    log(f"chip_smoke: phases 1-7 passed in {time.perf_counter() - t_start:.1f}"
+        launches, main_fastq, main_table = main_path(dev, tmp)
+        cov_fastq, cov_table = edge_cases(dev, tmp)
+        entries = probes(dev)
+        probe_edges(dev)
+        bench_on_card(dev, main_table.distinct(), cov_table.distinct())
+        t0 = time.perf_counter()
+        fold_launches = fold_phase(dev, tmp, main_fastq, main_table,
+                                   cov_fastq, cov_table)
+        log(f"phase 8: the streaming fold in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
     print(json.dumps({"kernels": [{
@@ -524,6 +725,9 @@ def main() -> int:
         "source": "kmer_tpu_torch/csrc/segment_counts.cu",
         "replaces": "kmer_tpu/pallas/segment_counts.py:58",
         "launches": launches,
+        "launches_by_path": {"single_shot (phase 4)": launches,
+                             **{f"fold ({c})": n
+                                for c, n in fold_launches.items()}},
         **timing,
     }, *entries]}))
     print(card_line())

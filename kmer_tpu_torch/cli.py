@@ -36,6 +36,7 @@ def _infer_format(path: str) -> str:
 
 
 def _cmd_count(args) -> int:
+    from .ops.wide import WideCounts
     from .packed import PackedKmers
     from .pipeline import count_file
     from .utils.logging import StatsCounters, get_logger
@@ -51,6 +52,7 @@ def _cmd_count(args) -> int:
         args.input, fmt, args.k, canonical=args.canonical,
         batch=args.batch or None, width=args.width or None,
         chunk_bytes=args.chunk_mb << 20 if args.chunk_mb else None,
+        capacity=args.slots,
         max_capacity=args.max_slots or None,
         spill_dir=args.spill_dir,
         stats=stats,
@@ -61,8 +63,12 @@ def _cmd_count(args) -> int:
     # trimmed rows are in ascending key order, so a stable sort by -count
     # keeps ties key-ascending; only the printed rows are decoded
     t = result.trim()
-    hi, lo, length, counts = t.to_numpy()
-    c64 = counts.astype(np.int64)
+    if isinstance(t, WideCounts):
+        hi, lo, length, _, _ = t.to_numpy()
+        c64 = t.counts64()
+    else:
+        hi, lo, length, counts = t.to_numpy()
+        c64 = counts.astype(np.int64)
     order = np.argsort(-c64, kind="stable")
     if args.top:
         order = order[: args.top]
@@ -71,9 +77,15 @@ def _cmd_count(args) -> int:
         print(f"{kmer}\t{int(count)}")
     print(f"# {c64.size} distinct, {int(c64.sum())} total", file=sys.stderr)
     if args.save:
-        from .utils.checkpoint import save_table
+        meta = {"k": args.k, "canonical": args.canonical}
+        if isinstance(t, WideCounts):
+            from .parallel.streaming import save_wide
 
-        save_table(t, args.save, {"k": args.k, "canonical": args.canonical})
+            save_wide(t, args.save, meta)
+        else:
+            from .utils.checkpoint import save_table
+
+            save_table(t, args.save, meta)
         log.info("saved table to %s", args.save)
     return 0
 
@@ -142,7 +154,7 @@ def main(argv=None) -> int:
     c.add_argument("--save", default=None, help="save table snapshot (.npz)")
     c.add_argument(
         "--ckpt", default=None, metavar="PATH",
-        help="checkpoint path (streaming route only: not ported yet)",
+        help="resumable checkpoint path (takes the streaming fold)",
     )
     c.add_argument(
         "--chunk-mb", type=int, default=0, metavar="MB",
@@ -150,16 +162,17 @@ def main(argv=None) -> int:
     )
     c.add_argument(
         "--slots", type=int, default=1 << 24, metavar="N",
-        help="initial accumulator slots of the streaming route; the "
-        "single-shot route, the only one ported, does not use it",
+        help="initial accumulator slots of the streaming fold",
     )
     c.add_argument(
         "--max-slots", type=int, default=0, metavar="N",
-        help="device slot budget (streaming route only: not ported yet)",
+        help="device slot budget: past it the fold spills sorted runs "
+        "(takes the streaming fold)",
     )
     c.add_argument(
         "--spill-dir", default=None, metavar="DIR",
-        help="spill directory (streaming route only: not ported yet)",
+        help="directory for spilled runs (default: host memory; takes "
+        "the streaming fold)",
     )
     c.add_argument(
         "--device", default="cuda",

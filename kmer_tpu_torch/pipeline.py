@@ -1,20 +1,28 @@
-"""Disk-to-table counting: the single-shot route of ``count_file``.
+"""Disk-to-table counting: ``count_file`` and its two routes.
 
-The counterpart of ``kmer_tpu/pipeline.py`` for files whose windows fit
-one device buffer (up to ~150M window slots, e.g. 1M x 150 bp reads):
+The counterpart of ``kmer_tpu/pipeline.py``.  A producer thread parses
+the file (native C) and packs fixed-width 2-bit rows, one ``[B, W/16 + 1]``
+uint32 wire array per batch with the row lengths in the last column,
+while the device works on the batch before.  On the device each batch is
+unpacked, its k-windows extracted (and canonicalized), and then:
 
-1. a producer thread parses the file (native C) and packs fixed-width
-   2-bit rows, one ``[B, W/16 + 1]`` uint32 wire array per batch with the
-   row lengths in the last column;
-2. each batch uploads as it arrives, while the next one parses;
-3. on the device each batch is unpacked, its k-windows extracted (and
-   canonicalized), and written in place into one flat int64 key buffer;
-4. one ``count_windows``: a sort, then the segment-count kernel.
+* **single-shot** (files whose windows fit one device buffer, up to ~150M
+  window slots): every batch's keys go into one flat int64 buffer, and
+  one ``count_windows`` (a sort, then the segment-count kernel) makes a
+  CountTable;
+* **streaming fold** (larger files, or a checkpoint, spill directory or
+  device slot budget): each batch is counted, its live groups compacted,
+  and merged into a 64-bit ``WideCounts`` accumulator that grows in
+  powers of two and, at the budget, spills sorted runs that finish with
+  an exact K-way merge.  Confirmed points are checkpointed so a killed
+  run resumes where it stopped.
 
-The streaming-fold route of ``kmer_tpu`` (a 64-bit accumulator with
-revert-and-replay, growth, spill and checkpoints) is not ported yet:
-``count_file`` raises NotImplementedError where ``kmer_tpu`` would take
-it, and never counts some other way.
+``kmer_tpu``'s fold reverts a batch on the device when the merge
+overflows and replays it later, because reading a device value stalls
+the TPU's asynchronous dispatch.  Here the fold's boolean-mask selects
+synchronize anyway, so the merged distinct count is read after each
+batch and acted on before the next: every batch is folded exactly once
+into the table that survives, and nothing is replayed.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -32,16 +41,14 @@ from .errors import InvalidKmerLengthError
 from .native import device_unpack_rows, rows_packed
 from .ops.count import CountTable, count_windows
 from .ops.extract import canonicalize, extract_windows_batch
-from .utils.logging import StatsCounters
+from .ops.wide import (
+    SpillRuns, WideCounts, fit_groups, live_rows, merge_groups, merge_runs,
+    pad_wide, table_groups)
+from .utils.logging import StatsCounters, get_logger
+from .utils.profiling import Profile, phase_timer, synchronize
 
 # single-shot ceiling in window slots (the value of kmer_tpu/pipeline.py)
 _SINGLE_SHOT_MAX = 150 * 1000 * 1000
-
-_STREAMING_TODO = (
-    "{why}: that needs the streaming-fold route (ROADMAP.md §1 item 5, "
-    "ops/wide.py, and the rest of item 6, pipeline.count_batches_pipelined), "
-    "which kmer_tpu_torch does not have yet"
-)
 
 
 def auto_width(lengths: np.ndarray, cap: int = 1024) -> int:
@@ -114,19 +121,56 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
                 buf_l = [alll[n_full:]]
                 pending -= n_full
         if pending:  # zero-length-padded fixed-shape tail
-            allw = np.concatenate(buf_w)
-            alll = np.concatenate(buf_l)
-            for s in range(0, allw.shape[0], batch):
-                w = allw[s: s + batch]
-                ln = alll[s: s + batch]
-                if w.shape[0] < batch:
-                    pad = batch - w.shape[0]
-                    w = np.concatenate(
-                        [w, np.zeros((pad, w.shape[1]), np.uint32)])
-                    ln = np.concatenate([ln, np.zeros(pad, ln.dtype)])
-                yield w, ln
+            yield from _padded_batches(np.concatenate(buf_w),
+                                       np.concatenate(buf_l), batch)
 
     return gen(), batch, width, est_windows
+
+
+def _padded_batches(words: np.ndarray, lengths: np.ndarray, batch: int):
+    """Fixed-shape batches of packed rows; the last one zero-padded."""
+    for s in range(0, words.shape[0], batch):
+        w = words[s: s + batch]
+        ln = lengths[s: s + batch]
+        if w.shape[0] < batch:
+            pad = batch - w.shape[0]
+            w = np.concatenate([w, np.zeros((pad, w.shape[1]), np.uint32)])
+            ln = np.concatenate([ln, np.zeros(pad, ln.dtype)])
+        yield w, ln
+
+
+def initial_capacity(capacity: int, k: int, est_windows: int) -> int:
+    """Clamp the starting accumulator capacity by what the workload can
+    possibly need: distinct keys <= total windows and <= 4^k.  Growth
+    covers an underestimate."""
+    upper = max(int(est_windows), 1)
+    if k <= 26:
+        upper = min(upper, 4 ** k)
+    upper = max(1 << 12, 1 << int(upper - 1).bit_length())
+    return min(1 << max(3, int(capacity - 1).bit_length()), upper)
+
+
+def column_batch_feed(seqs, k: int, batch: int | None = None,
+                      width: int | None = None,
+                      width_cap: int = 1 << 14) -> tuple[Iterator, int, int]:
+    """Fixed-shape packed feed over in-memory dna strings (the CSV
+    dna-column path).  Long rows split exactly; short ones pad."""
+    from .native import encode_dna_fast
+
+    enc = [encode_dna_fast(s) for s in seqs]
+    lens = np.asarray([e.size for e in enc], np.int64)
+    if not width:
+        width = auto_width(lens, cap=width_cap)
+    width = -(-width // 16) * 16
+    while width <= k - 1:
+        width += 16
+    if not batch:
+        batch = auto_batch(width, k)
+    offs = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    stream = np.concatenate(enc) if enc else np.zeros(0, np.uint8)
+    words, plens = rows_packed(stream, offs, width, k)
+    return _padded_batches(words, plens, batch), batch, width
 
 
 def _combine(words: np.ndarray, lengths) -> np.ndarray:
@@ -140,19 +184,22 @@ def _combine(words: np.ndarray, lengths) -> np.ndarray:
 
 
 class _Feeder(threading.Thread):
-    """Producer: pulls (words, lengths) batches from the feed and queues
-    their wire arrays, then None; an exception in the feed is queued for
-    the consumer to raise.  The consumer calls ``stop`` when it is done,
-    on every path, so the thread never stays blocked on a full queue."""
+    """Producer: pulls (rows, lengths) batches from the feed, packs raw
+    2-bit codes to words, and queues (index, wire array), then None; an
+    exception in the feed is queued for the consumer to raise.  The first
+    ``skip`` batches (done before a resume) are read and dropped.  The
+    consumer calls ``stop`` when it is done, on every path, so the thread
+    never stays blocked on a full queue."""
 
-    def __init__(self, batches: Iterable, depth: int):
+    def __init__(self, batches: Iterable, depth: int, skip: int = 0):
         super().__init__(daemon=True)
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._batches = batches
-        self._stop = threading.Event()
+        self._skip = skip
+        self._halt = threading.Event()
 
     def stop(self) -> None:
-        self._stop.set()
+        self._halt.set()
         try:  # unblock a producer stuck on a full queue
             while True:
                 self.q.get_nowait()
@@ -160,7 +207,7 @@ class _Feeder(threading.Thread):
             pass
 
     def _put(self, item) -> bool:
-        while not self._stop.is_set():
+        while not self._halt.is_set():
             try:
                 self.q.put(item, timeout=0.2)
                 return True
@@ -169,13 +216,61 @@ class _Feeder(threading.Thread):
         return False
 
     def run(self):
+        from .native import pack2bit_rows
+
         try:
-            for words, lengths in self._batches:
-                if not self._put(_combine(words, lengths)):
+            for i, (rows, lengths) in enumerate(self._batches):
+                if self._halt.is_set():
+                    return
+                if i < self._skip:
+                    continue
+                rows = np.asarray(rows)
+                if rows.dtype != np.uint32:  # raw codes: pack here
+                    rows = pack2bit_rows(rows)
+                if not self._put((i, _combine(rows, lengths))):
                     return
             self._put(None)
         except BaseException as e:  # raised again in the consumer
             self._put(e)
+
+
+def _device(device: str | torch.device) -> torch.device:
+    """The device to count on; a CUDA device without a card raises here,
+    before any file is read."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was asked for, but torch.cuda.is_available() "
+            "is False")
+    return device
+
+
+def _upload(wire: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A wire array to the device (uint32 travels as int32 bits)."""
+    return torch.from_numpy(wire.view(np.int32)).to(device)
+
+
+def _windows(wire: torch.Tensor, k: int, canonical: bool, width: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """An uploaded wire array -> (keys int64 [B, W-k+1], valid)."""
+    wire = wire.to(torch.int64) & 0xFFFFFFFF
+    codes = device_unpack_rows(wire[:, :-1], width)
+    keys, valid = extract_windows_batch(codes, wire[:, -1], k)
+    if canonical:
+        keys = canonicalize(keys, k)
+    return keys, valid
+
+
+def _record(stats: StatsCounters | None, wire: np.ndarray, k: int) -> None:
+    if stats is not None:
+        ls = wire[:, -1].astype(np.int64)
+        stats.record_batch(int((ls > 0).sum()), int(ls.sum()),
+                           int(np.maximum(ls - (k - 1), 0).sum()), 0)
+
+
+class _SingleShotOverflow(Exception):
+    """The routing estimate undershot: the file's real window count
+    exceeds the single-shot buffer ceiling, so take the streaming fold."""
 
 
 def _count_single_shot(feed, k: int, canonical: bool, batch: int,
@@ -193,14 +288,9 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
             if isinstance(item, BaseException):
                 raise item
             if (len(wires) + 1) * spb > ceiling:
-                raise NotImplementedError(_STREAMING_TODO.format(
-                    why=f"the file holds more than {ceiling} window slots"))
-            # uint32 travels as int32 bits; widened on the device
-            wires.append(torch.from_numpy(item.view(np.int32)).to(device))
-            if stats is not None:
-                ls = item[:, -1].astype(np.int64)
-                stats.record_batch(int((ls > 0).sum()), int(ls.sum()),
-                                   int(np.maximum(ls - (k - 1), 0).sum()), 0)
+                raise _SingleShotOverflow()
+            wires.append(_upload(item[1], device))
+            _record(stats, item[1], k)
     finally:
         feeder.stop()
     if not wires:
@@ -208,15 +298,283 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
     keys = torch.empty(len(wires) * spb, dtype=torch.int64, device=device)
     valid = torch.empty(len(wires) * spb, dtype=torch.bool, device=device)
     for i, wire in enumerate(wires):
-        wire = wire.to(torch.int64) & 0xFFFFFFFF
-        codes = device_unpack_rows(wire[:, :-1], width)
-        wins, ok = extract_windows_batch(codes, wire[:, -1], k)
-        if canonical:
-            wins = canonicalize(wins, k)
+        wins, ok = _windows(wire, k, canonical, width)
         keys[i * spb: (i + 1) * spb] = wins.reshape(-1)
         valid[i * spb: (i + 1) * spb] = ok.reshape(-1)
     del wires
     return count_windows(keys, valid, k)
+
+
+# --- the streaming fold ---------------------------------------------------
+
+
+class PipelineCheckpoint:
+    """Checkpoint/resume state for count_batches_pipelined.  Snapshots are
+    written only at confirmed points, so a resumed accumulator holds every
+    batch below ``batches_done`` exactly once."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.acc: WideCounts | None = None
+        self.batches_done = 0
+        self.capacity = 0
+        self.spill_runs: list[str] = []
+        self.meta: dict = {}
+        if os.path.exists(path):
+            from .parallel.streaming import load_wide
+
+            self.acc, meta = load_wide(path)
+            self.meta = meta
+            self.batches_done = int(meta.get("batches_done", 0))
+            self.capacity = int(meta.get("capacity", self.acc.capacity))
+            self.spill_runs = list(meta.get("spill_runs", []))
+
+
+def save_pipeline_ckpt(acc: WideCounts, path: str, batches_done: int,
+                       capacity: int, spill_runs: list[str],
+                       k: int, canonical: bool,
+                       batch: int | None = None,
+                       width: int | None = None) -> None:
+    """Confirmed-point checkpoint in ``save_wide``'s layout.  k, canonical,
+    batch and width are recorded so that a resume with other flags fails
+    instead of folding mismatched windows or skipping the wrong reads."""
+    from .parallel.streaming import save_wide
+
+    save_wide(acc, path, {
+        "batches_done": batches_done,
+        "capacity": capacity,
+        "spill_runs": spill_runs,
+        "k": k,
+        "canonical": canonical,
+        "batch": batch,
+        "width": width,
+    })
+
+
+class _PipelineRun:
+    """One streaming count: the accumulator, its capacity and the spills.
+
+    ``fold`` reads the merged distinct count before it commits a batch:
+    the merge fits the capacity (kept), fits the budget (the capacity
+    grows to fit), or does not fit the budget (the accumulator spills and
+    the batch is kept alone; a batch that alone exceeds the budget is an
+    error).  Then, like ``kmer_tpu``'s sampled policy, the capacity grows
+    ahead of need past ``grow_threshold``, and at the budget the
+    accumulator spills past ``spill_threshold``.
+    """
+
+    def __init__(self, k, canonical, width, cap, max_cap, spills,
+                 spill_threshold, grow_threshold, stats, profile, device):
+        self.k = k
+        self.canonical = canonical
+        self.width = width
+        self.cap = cap
+        self.max_cap = max_cap
+        self.spills: SpillRuns = spills
+        self.spill_threshold = spill_threshold
+        self.grow_threshold = grow_threshold
+        self.stats = stats
+        self.profile = profile
+        self.device = device
+        self.log = get_logger()
+        self.acc = WideCounts.empty(cap, device)
+
+    def phase(self, name: str):
+        """Times a phase into the run's profile (with a synchronize)."""
+        sync = self.device if self.profile is not None else None
+        return phase_timer(self.profile, name, sync=sync)
+
+    def _at_max(self) -> bool:
+        return self.max_cap is not None and self.cap >= self.max_cap
+
+    def _grow(self, need: int) -> None:
+        new_cap = self.cap
+        target = max(2 * self.cap, need + (need >> 2) + 1)
+        while new_cap < target:
+            new_cap *= 2
+        if self.max_cap is not None:
+            new_cap = min(new_cap, self.max_cap)
+        if new_cap > self.cap:
+            self.log.info("pipeline: growing %d -> %d slots", self.cap,
+                          new_cap)
+            self.cap = new_cap
+            if self.stats is not None:
+                self.stats.grows += 1
+
+    def _spill(self) -> None:
+        with self.phase("spill"):
+            if self.spills.spill(self.acc) and self.stats is not None:
+                self.stats.spills += 1
+            self.acc = WideCounts.empty(self.cap, self.device)
+
+    def fold(self, idx: int, wire: np.ndarray) -> None:
+        """Folds batch ``idx`` into the accumulator, exactly once."""
+        k = self.k
+        with self.phase("extract"):
+            keys, valid = _windows(_upload(wire, self.device), k,
+                                   self.canonical, self.width)
+        with self.phase("count"):
+            table = count_windows(keys, valid, k)
+        del keys, valid
+        with self.phase("compact"):
+            b_keys, b_counts = table_groups(table)
+            a_keys, a_counts = live_rows(self.acc)
+        del table
+        with self.phase("merge"):
+            keys, counts = merge_groups(a_keys, a_counts, b_keys, b_counts)
+        del a_keys, a_counts
+        n = keys.numel()
+        if n > self.cap and self.max_cap is not None and n > self.max_cap:
+            self._spill()
+            keys, counts, n = b_keys, b_counts, b_keys.numel()
+            if n > self.max_cap:
+                raise ValueError(
+                    f"batch {idx} needs {n} distinct slots "
+                    f"but max_capacity is {self.max_cap}; shrink the batch "
+                    "or raise --max-slots")
+        del b_keys, b_counts
+        if n > self.cap:
+            self._grow(n)
+        if not self._at_max() and n > self.grow_threshold * self.cap:
+            self._grow(max(n + 1, int(self.cap / max(
+                self.grow_threshold, 0.1)) + 1))
+        with self.phase("merge"):
+            self.acc = fit_groups(keys, counts, k, self.cap)
+        if self._at_max() and n > self.spill_threshold * self.cap:
+            self._spill()
+
+
+def count_batches_pipelined(
+    batches: Iterable[tuple[np.ndarray, np.ndarray]],
+    k: int,
+    canonical: bool = False,
+    capacity: int = 1 << 24,
+    max_capacity: int | None = None,
+    spill_dir: str | None = None,
+    spill_threshold: float = 0.85,
+    stats: StatsCounters | None = None,
+    ckpt: PipelineCheckpoint | None = None,
+    ckpt_every_s: float = 60.0,
+    queue_depth: int = 3,
+    grow_threshold: float = 0.7,
+    *,
+    device: str | torch.device,
+    profile: Profile | None = None,
+) -> WideCounts:
+    """Exact 64-bit GROUP BY over fixed-shape batches on ``device``.
+
+    Batches are (codes [B, W] uint8, lengths [B]) or already packed
+    (words [B, W/16] uint32, lengths [B]), all of one shape (pad the
+    tail; zero-length rows contribute nothing).  Returns a WideCounts on
+    the device when nothing spilled, a host one otherwise.  The capacity
+    starts at a power of two and only grows, up to ``max_capacity``
+    rounded down to a power of two (None: unbounded); past it, live slots
+    spill to host or ``spill_dir`` sorted runs, and the result is their
+    exact K-way merge.  With ``profile``, the device phases of every
+    batch are timed (with a synchronize around each).
+    """
+    device = _device(device)
+    cap = 1 << max(3, int(capacity - 1).bit_length())
+    max_cap = None
+    if max_capacity is not None and max_capacity:
+        # the budget rounds DOWN to a power of two (growth doubles from
+        # one); the starting capacity, which rounds up, clamps to it
+        max_cap = max(8, 1 << (int(max_capacity).bit_length() - 1))
+        cap = min(cap, max_cap)
+        if ckpt is not None and spill_dir is None:
+            raise ValueError(
+                "a checkpointed count with a device budget needs "
+                "spill_dir: in-RAM spill runs do not survive a restart")
+    spills = SpillRuns(spill_dir)
+    resumed = ckpt is not None and ckpt.acc is not None
+    start = 0
+    if resumed:
+        start = ckpt.batches_done
+        spills.runs = list(ckpt.spill_runs)
+        cap = max(cap, 1 << max(3, int(ckpt.capacity - 1).bit_length()))
+
+    feeder = _Feeder(batches, queue_depth, skip=start)
+    feeder.start()
+    try:
+        item = feeder.q.get()
+        if isinstance(item, BaseException):
+            raise item
+        if item is None:
+            if resumed:
+                return _finish(ckpt.acc.to(device), spills, device)
+            raise ValueError("empty batch stream")
+        B, nwp1 = item[1].shape
+        width = (nwp1 - 1) * 16
+        if resumed:
+            # a resume with other flags would fold mismatched windows (or
+            # skip the wrong number of reads) on top of the accumulator
+            for name, want in (("k", k), ("canonical", bool(canonical)),
+                               ("batch", B), ("width", width)):
+                have = ckpt.meta.get(name)
+                if have is not None and have != want:
+                    raise ValueError(
+                        f"checkpoint {ckpt.path} was written with "
+                        f"{name}={have}; this resume uses {name}={want}")
+        run = _PipelineRun(k, canonical, width, cap, max_cap, spills,
+                           spill_threshold, grow_threshold, stats, profile,
+                           device)
+        if resumed:
+            run.acc = pad_wide(ckpt.acc.to(device), run.cap)
+        writer = None
+        if ckpt is not None:
+            from .parallel.streaming import AsyncCheckpointer
+
+            def _write(acc, done, cap_now, runs_now):
+                save_pipeline_ckpt(acc, ckpt.path, done, cap_now, runs_now,
+                                   k, canonical, batch=B, width=width)
+                ckpt.batches_done = done
+
+            writer = AsyncCheckpointer(_write)
+        last_ckpt_t = time.perf_counter()
+        done = start
+        while item is not None:
+            if isinstance(item, BaseException):
+                raise item
+            idx, wire = item
+            if wire.shape != (B, nwp1):
+                raise ValueError(
+                    f"batch {idx} shape {wire.shape} != first batch "
+                    f"{(B, nwp1)}; the pipelined path requires one fixed "
+                    "batch shape")
+            run.fold(idx, wire)
+            _record(stats, wire, k)
+            done = idx + 1
+            now = time.perf_counter()
+            if (writer is not None and now - last_ckpt_t >= ckpt_every_s
+                    and done > ckpt.batches_done):
+                with run.phase("ckpt"):  # waits for the previous write
+                    synchronize(device)  # the snapshot's work is done
+                    writer.submit(run.acc, done, run.cap, list(spills.runs))
+                last_ckpt_t = now
+            item = feeder.q.get()
+        if writer is not None:
+            with run.phase("ckpt"):
+                writer.close()
+                if done > ckpt.batches_done or ckpt.acc is None:
+                    save_pipeline_ckpt(run.acc, ckpt.path, done, run.cap,
+                                       list(spills.runs), k, canonical,
+                                       batch=B, width=width)
+                    ckpt.batches_done = done
+    finally:
+        feeder.stop()
+    with run.phase("merge_runs"):
+        return _finish(run.acc, spills, device)
+
+
+def _finish(acc: WideCounts, spills: SpillRuns,
+            device: torch.device) -> WideCounts:
+    if not spills.runs:
+        return acc
+    runs = spills.load()
+    runs.append(acc.trim())
+    get_logger().info("pipeline: merging %d spill runs (%d rows)",
+                      len(runs), sum(r.n_unique for r in runs))
+    return merge_runs(runs, device=device)
 
 
 def count_file(
@@ -227,39 +585,57 @@ def count_file(
     batch: int | None = None,
     width: int | None = None,
     chunk_bytes: int | None = None,
+    capacity: int = 1 << 24,
     max_capacity: int | None = None,
     spill_dir: str | None = None,
     stats: StatsCounters | None = None,
     ckpt_path: str | None = None,
+    ckpt_every_s: float = 60.0,
+    single_shot: bool | None = None,
     *,
     device: str | torch.device,
-) -> CountTable:
-    """Count a FASTA/FASTQ file end to end on ``device``; returns a
-    CountTable on that device.
+    profile: Profile | None = None,
+) -> CountTable | WideCounts:
+    """Count a FASTA/FASTQ file end to end on ``device``.
 
-    Only the single-shot route is ported.  Where ``kmer_tpu.pipeline.
-    count_file`` would take the streaming fold (a file with more than
-    ~150M window slots, or a checkpoint, spill directory or device slot
-    budget), this raises NotImplementedError.
+    Returns a CountTable from the single-shot route (small files: every
+    window fits one device buffer) and a WideCounts from the streaming
+    fold.  ``single_shot=None`` routes by an extrapolated window
+    estimate; a checkpoint, a spill directory or a device budget always
+    takes the fold, and so does a file whose estimate undershot (found
+    mid-stream).  ``profile`` times the fold's device phases.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} was asked for, but torch.cuda.is_available() "
-            "is False")
+    device = _device(device)
     if not 1 <= k <= MAX_K:
         raise InvalidKmerLengthError()
-    for flag, value in (("a checkpoint path", ckpt_path),
-                        ("a spill directory", spill_dir),
-                        ("a device slot budget", max_capacity)):
-        if value:
-            raise NotImplementedError(
-                _STREAMING_TODO.format(why=f"{flag} was given"))
     feed, batch, width, est_windows = file_batch_feed(
         path, fmt, k, batch, width, chunk_bytes)
-    if (est_windows * 1.1 > _SINGLE_SHOT_MAX
-            or batch * (width - k + 1) > _SINGLE_SHOT_MAX):
-        raise NotImplementedError(_STREAMING_TODO.format(
-            why=f"the file routes to the streaming fold (about {est_windows} "
-                f"windows, {batch} x {width - k + 1} slots per batch)"))
-    return _count_single_shot(feed, k, canonical, batch, width, device, stats)
+    if single_shot is None:
+        single_shot = (
+            est_windows * 1.1 <= _SINGLE_SHOT_MAX
+            and batch * (width - k + 1) <= _SINGLE_SHOT_MAX
+            and not ckpt_path and not spill_dir and not max_capacity
+        )
+    if single_shot:
+        try:
+            return _count_single_shot(feed, k, canonical, batch, width,
+                                      device, stats)
+        except _SingleShotOverflow:
+            # stats batches recorded before the abort are counted again
+            # by the streaming rerun (metrics only; counts stay exact)
+            get_logger().info(
+                "single-shot routing estimate undershot; falling back "
+                "to the streaming fold")
+            feed, batch, width, est_windows = file_batch_feed(
+                path, fmt, k, batch, width, chunk_bytes)
+    # bases <= file bytes (FASTA ~1x, FASTQ ~0.45x); windows <= bases
+    est = os.path.getsize(path) // (2 if fmt == "fastq" else 1)
+    capacity = initial_capacity(capacity, k, est)
+    if max_capacity:
+        capacity = min(capacity, max_capacity)
+    ckpt = PipelineCheckpoint(ckpt_path) if ckpt_path else None
+    return count_batches_pipelined(
+        feed, k, canonical=canonical, capacity=capacity,
+        max_capacity=max_capacity, spill_dir=spill_dir, stats=stats,
+        ckpt=ckpt, ckpt_every_s=ckpt_every_s, device=device, profile=profile,
+    )

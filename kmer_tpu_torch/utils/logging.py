@@ -33,6 +33,8 @@ class StatsCounters:
     kmers: int = 0
     unique_kmers: int = 0
     batches: int = 0
+    grows: int = 0  # streaming fold: capacity growth events
+    spills: int = 0  # streaming fold: sorted runs spilled
     started_at: float = dataclasses.field(default_factory=time.time)
 
     def record_batch(self, n_reads: int, n_bases: int, n_kmers: int,

@@ -129,3 +129,87 @@ def test_segment_copy_kernel_matches_plain_on_cuda(serial):
     plan = copy_plan([1, 2, 3], [0, 0, 0], 7, 5000, 7, device=dev)
     assert plan.serial
     assert torch.equal(segment_copy(src, plan), src[3:10])
+
+
+def _fold_inputs(seed, n, k, pool):
+    """Left-aligned k-mer keys drawn from ``pool`` values (a few all-t),
+    and a validity mask."""
+    rng = np.random.default_rng(seed)
+    shift = 64 - 2 * k
+    top = np.uint64(((1 << (2 * k)) - 1) << shift)
+    vals = (rng.integers(0, 1 << 64, pool, dtype=np.uint64) & top).view(
+        np.int64)
+    vals[0] = -1 << shift  # the all-t k-mer (the sentinel's bits at k = 32)
+    keys = torch.from_numpy(rng.choice(vals, n))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    return keys, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [5, 21, 31, 32])
+def test_fold_on_cuda_equals_cpu(k):
+    """fold_windows_into_wide on the card: every lane equals the CPU run,
+    and the batch's count launches the segment-count kernel."""
+    from kmer_tpu_torch.ops.wide import WideCounts, fold_windows_into_wide
+
+    dev = _cuda()
+    acc = {"cpu": WideCounts.empty(1 << 12, "cpu"),
+           "cuda": WideCounts.empty(1 << 12, dev)}
+    for step in range(3):
+        keys, valid = _fold_inputs(100 * k + step, 50_000, k, 3000)
+        before = segment_counts.launches
+        acc["cuda"] = fold_windows_into_wide(acc["cuda"], keys.to(dev),
+                                             valid.to(dev), k)
+        assert segment_counts.launches == before + 1
+        acc["cpu"] = fold_windows_into_wide(acc["cpu"], keys, valid, k)
+    assert acc["cuda"].keys.is_cuda
+    assert acc["cuda"].distinct() == acc["cpu"].distinct() > 0
+    for got, want in zip(acc["cuda"].to_numpy(), acc["cpu"].to_numpy()):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [None, 1 << 13])
+def test_wide_accumulator_on_cuda_equals_cpu(budget):
+    """WideAccumulator growth (and, with a budget, spills and the device
+    K-way merge) on the card equals the CPU run."""
+    from kmer_tpu_torch.ops.count import count_windows
+    from kmer_tpu_torch.ops.wide import WideAccumulator
+
+    dev = _cuda()
+    accs = {d: WideAccumulator(capacity=64, max_capacity=budget, device=d)
+            for d in ("cpu", dev)}
+    for step in range(8):
+        keys, valid = _fold_inputs(7 + step, 4000, 21, 1 << 14)
+        for d, acc in accs.items():
+            acc.add(count_windows(keys.to(d), valid.to(d), 21))
+    cpu, gpu = accs["cpu"].result(), accs[dev].result()
+    assert accs[dev].capacity == accs["cpu"].capacity
+    assert accs[dev].n_spills == accs["cpu"].n_spills
+    assert (accs[dev].n_spills > 0) == (budget is not None)
+    for got, want in zip(gpu.trim().to_numpy(), cpu.trim().to_numpy()):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_pipelined_fold_on_cuda_equals_cpu(tmp_path):
+    """count_batches_pipelined with growth and spills to a directory: the
+    card's table equals the CPU's, through the segment-count kernel."""
+    from kmer_tpu_torch.pipeline import count_batches_pipelined
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    batches = [(rng.integers(0, 4, (256, 100), dtype=np.uint8),
+                rng.integers(0, 101, 256).astype(np.int32))
+               for _ in range(12)]
+    results = {}
+    for d in ("cpu", dev):
+        before = segment_counts.launches
+        results[d] = count_batches_pipelined(
+            iter(batches), 11, canonical=True, capacity=256,
+            max_capacity=1 << 15, spill_dir=str(tmp_path / str(d)),
+            device=d).trim()
+        launched = segment_counts.launches - before
+        assert launched == (12 if d == dev else 0)
+    for got, want in zip(results[dev].to_numpy(), results["cpu"].to_numpy()):
+        np.testing.assert_array_equal(got, want)

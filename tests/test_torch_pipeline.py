@@ -1,5 +1,6 @@
 """The port's count_file (single-shot route) and CLI vs kmer_tpu's, on the
 CPU: trimmed tables equal array for array, CLI stdout equal line for line.
+The streaming fold is held in tests/test_torch_fold_pipeline.py.
 """
 
 import gzip
@@ -85,19 +86,6 @@ def test_empty_file_raises(tmp_path):
     open(path, "w").close()
     with pytest.raises(ValueError, match="empty"):
         count_file(path, "fastq", 9, device="cpu")
-
-
-@pytest.mark.parametrize("kw", [
-    {"batch": 1 << 20, "width": 1024},  # routes to the streaming fold
-    {"ckpt_path": "ck.npz"},
-    {"spill_dir": "spill"},
-    {"max_capacity": 1 << 20},
-])
-def test_streaming_route_raises_not_implemented(tmp_path, kw):
-    path = str(tmp_path / "r.fastq")
-    _write(path, _records(np.random.default_rng(1), 20, 30, 60), "fastq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        count_file(path, "fastq", 21, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("args", [

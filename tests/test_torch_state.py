@@ -79,7 +79,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import kmer_tpu_torch, kmer_tpu_torch.pipeline, kmer_tpu_torch.cli\n"
-        "import kmer_tpu_torch.utils.checkpoint\n"
+        "import kmer_tpu_torch.utils.checkpoint, kmer_tpu_torch.ops.wide\n"
+        "import kmer_tpu_torch.parallel.streaming\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'kmer_tpu'))\n"
@@ -99,6 +100,14 @@ def test_cuda_device_without_a_card_raises_before_any_work():
     # nothing is read, parsed or counted on the CPU
     with pytest.raises(RuntimeError, match="cuda"):
         count_file("no-such-file.fastq", "fastq", 21, device="cuda")
+    from kmer_tpu_torch.pipeline import count_batches_pipelined
+
+    def batches():
+        raise AssertionError("the feed was read")
+        yield
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        count_batches_pipelined(batches(), 21, device="cuda")
 
 
 def test_cli_default_device_without_a_card_fails(tmp_path):
