@@ -7,10 +7,14 @@ Phases, each of which must pass or the script exits nonzero:
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels (nvcc) and the host parser (cc) from the
-   sources in this checkout;
+   sources in this checkout, and prints ptxas's registers and spills;
 3. kernel vs plain: the segment-count kernel must equal its plain PyTorch
-   version exactly on the cases of tests/test_pallas.py and at the main
-   path's shape (~147M sorted keys); prints both times;
+   version exactly on the cases of tests/test_pallas.py, at the edges of
+   its tiles (on aligned tensors and on views 8 bytes past 16), and at
+   the main path's and a fold batch's shapes (146.8M and 73.4M sorted
+   keys), and its closed form above 2^30 slots; times the kernel and
+   ``torch.unique_consecutive`` in turns at both shapes, beside the
+   bound (12 bytes a slot at the card's published HBM rate);
 4. main path: writes a FASTQ of 1,000,000 x 150 bp reads from a seed and
    counts it (k = 21, canonical) through ``count_file`` on the card; the
    kernel's launch count must rise, and the table must equal an
@@ -21,7 +25,10 @@ Phases, each of which must pass or the script exits nonzero:
    probes at the scripts' shapes, through the four probe kernels) with
    every launch count set to 0 before it; each probe kernel must equal
    its plain version and the scripts' numpy oracles, each count must
-   rise; then kernel vs plain at edge shapes (8-row tiles, shift 0, one
+   rise; each probe prints its kernel's own time (many calls in one CUDA
+   graph, each with its inputs out of the L2 where bytes set the bound),
+   its bound and its library call's time; then kernel vs plain
+   at edge shapes (8-row tiles, shift 0, one
    copy of one word, a copy that ends at the source's last word);
 7. bench: ``run_bench`` (fused and coverage), ``run_bench_stream`` and
    ``run_chr_bench`` on the card, their distinct counts held against
@@ -155,6 +162,28 @@ def check_table(table, keys: np.ndarray, k: int, what: str) -> None:
 # --- phases --------------------------------------------------------------
 
 
+def load_by_path(path: str):
+    """The module in the file at ``path``, imported without putting its
+    directory on ``sys.path``."""
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ptxas_report(stem: str) -> str:
+    """ptxas's registers, spills and shared memory for each kernel of
+    ``csrc/<stem>.cu``, from the log of its build."""
+    from kmer_tpu_torch.kernels.build import BUILD_DIR
+
+    with open(os.path.join(BUILD_DIR, f"lib{stem}.so.log")) as f:
+        return "; ".join(ln.split(":", 1)[-1].strip() for ln in f
+                         if "Used" in ln or "spill" in ln)
+
+
 def time_cuda(fn, iters: int) -> float:
     import torch
 
@@ -170,15 +199,26 @@ def time_cuda(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# the kernel's timed shapes: (slots, sentinel slots) of the single-shot
+# count (2 batches x 524,288 rows x 140 slots) and of one fold batch
+TIMED_SHAPES = {"main path": (2 * 524288 * 140, 2 * 524288 * 16),
+                "fold batch": (524288 * 140, 524288 * 16)}
+ABOVE_2_30 = (1 << 30) + 12345  # slots of the closed-form case
+
+
 def kernel_cases(dev) -> dict:
-    """Kernel == plain version, exactly, on every case; times at the
-    main path's shape."""
+    """Kernel == plain version, exactly, on every case; kernel vs
+    ``torch.unique_consecutive`` in turns at the main path's and a fold
+    batch's shape, beside the bound."""
     import torch
 
     from kmer_tpu_torch.kernels.segment_counts import (
-        segment_counts, segment_counts_reference)
+        segment_counts, segment_counts_reference, segment_counts_tile)
     from kmer_tpu_torch.ops.count import SENTINEL_KEY
     from kmer_tpu_torch.packed import SIGN_FLIP, as_int64, key_from_hi_lo
+    from kmer_tpu_torch.probes.common import bound_ms
+
+    edges = load_by_path(os.path.join(ROOT, "tests", "segment_edges.py"))
 
     def compare(keys, sentinel, what):
         kc, ku = segment_counts(keys, sentinel)
@@ -199,6 +239,7 @@ def kernel_cases(dev) -> dict:
                               lo[order].astype(np.uint32))
         return torch.from_numpy(keys.copy()).to(dev)
 
+    t = segment_counts_tile()
     rng = np.random.default_rng(SEED)
     u32 = np.uint32
     cases = [
@@ -206,8 +247,8 @@ def kernel_cases(dev) -> dict:
          rng.integers(0, 7, 5000).astype(u32),
          rng.integers(0, 5, 5000).astype(u32), None),
         ("one segment spanning every tile",
-         np.r_[np.zeros(5 * 4096 + 7, u32), u32(9)],
-         np.zeros(5 * 4096 + 8, u32), None),
+         np.r_[np.zeros(5 * t + 7, u32), u32(9)],
+         np.zeros(5 * t + 8, u32), None),
         ("tile-aligned n (2048)", rng.integers(0, 3, 2048).astype(u32),
          np.zeros(2048, u32), None),
         ("tile-aligned n (8192)", rng.integers(0, 3, 8192).astype(u32),
@@ -228,23 +269,68 @@ def kernel_cases(dev) -> dict:
         compare(sorted_pairs(hi, lo), sentinel, what)
     compare(torch.zeros(0, dtype=torch.int64, device=dev), None, "n = 0")
 
-    # the main path's shape: 2 batches x 524,288 rows x 140 slots, of which
-    # ~17M are invalid (sentinel); valid keys left-aligned 21-mers drawn
-    # from 2^27 values, so segments of 1 to ~10 equal keys
-    n, n_sent = 2 * 524288 * 140, 2 * 524288 * 16
-    keys = rng.integers(0, 1 << 27, n, dtype=np.int64) << 22
-    keys[-n_sent:] = SENTINEL_KEY
-    flipped = torch.from_numpy(keys).to(dev) ^ SIGN_FLIP
-    sort_ms = time_cuda(lambda: torch.sort(flipped), 3)
-    skeys = torch.sort(flipped).values
-    del flipped
+    # the tile edges (tests/segment_edges.py: run i holds key i, then a
+    # sentinel run), on an aligned tensor and on a view 8 bytes past one
+    for what in edges.EDGES + edges.LARGE:
+        lengths, sentinel_run = edges.edge_runs(what, t)
+        sentinel = 1 << 62 if sentinel_run else None
+        host = np.r_[np.repeat(np.arange(lengths.size), lengths),
+                     np.full(sentinel_run, 1 << 62)]
+        buf = torch.empty(host.size + 1, dtype=torch.int64, device=dev)
+        for view, where in ((buf[:-1], "16-byte aligned"),
+                            (buf[1:], "8 bytes past 16")):
+            view.copy_(torch.from_numpy(host))
+            compare(view, sentinel, f"{what} (T = {t}), {where}")
+
+    # above 2^30 slots, against the closed form
+    n = ABOVE_2_30
+    keys = torch.arange(n, dtype=torch.int64, device=dev) >> 10
+    counts, n_unique = segment_counts(keys)
+    del keys
+    full = n // 1024 * 1024
+    blocks = counts[:full].view(-1, 1024)
+    check(bool((blocks[:, :1023] == 0).all())
+          and bool((blocks[:, 1023] == 1024).all())
+          and bool((counts[full:-1] == 0).all())
+          and int(counts[-1]) == n - full
+          and int(n_unique) == -(-n // 1024),
+          f"kernel == closed form of arange({n}) >> 10")
+    log(f"kernel == closed form: n={n} (above 2^30) n_unique={int(n_unique)}")
+    del counts, blocks
+
+    # left-aligned 21-mers drawn from 2^27 values (segments of 1 to ~10
+    # equal keys), the padding slots set to the sentinel, sorted
+    timing = {}
     sentinel = SENTINEL_KEY ^ SIGN_FLIP
-    err = compare(skeys, sentinel, "main-path shape")
-    ms = time_cuda(lambda: segment_counts(skeys, sentinel), 20)
-    plain_ms = time_cuda(lambda: segment_counts_reference(skeys, sentinel), 5)
-    log(f"main-path shape n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.sort {sort_ms:.4f} ms")
-    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+    for shape, (n, n_sent) in TIMED_SHAPES.items():
+        keys = rng.integers(0, 1 << 27, n, dtype=np.int64) << 22
+        keys[-n_sent:] = SENTINEL_KEY
+        skeys = torch.sort(torch.from_numpy(keys).to(dev) ^ SIGN_FLIP).values
+        del keys
+        err = compare(skeys, sentinel, f"{shape} shape")
+        turns = []
+        for _ in range(2):  # kernel, library call, kernel, library call
+            turns.append(time_cuda(lambda: segment_counts(skeys, sentinel),
+                                   20))
+            turns.append(time_cuda(lambda: torch.unique_consecutive(
+                skeys, return_counts=True), 20))
+        plain_ms = time_cuda(
+            lambda: segment_counts_reference(skeys, sentinel), 3)
+        # 8 B read and 4 B written a slot; 64-bit compares with both
+        # neighbours and the sentinel (2 int32 operations each), a subtract
+        bound, by = bound_ms(12 * n + 4, 7 * n, dev)
+        ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        timing[shape] = {"n": n, "max_abs_err": float(err), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib_ms,
+                         "pct_of_bound": 100 * bound / ms}
+        log(f"{shape} shape n={n}: kernel {turns[0]:.4f} / {turns[2]:.4f} "
+            f"ms, torch.unique_consecutive {turns[1]:.4f} / {turns[3]:.4f} "
+            f"ms (in turns, 20 launches each), plain {plain_ms:.4f} ms; "
+            f"bound {bound:.4f} ms ({by}), kernel at "
+            f"{100 * bound / ms:.2f}% of it")
+        del skeys
+    return timing
 
 
 def main_path(dev, tmp: str):
@@ -378,7 +464,10 @@ def probes(dev) -> list[dict]:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": float(max(r.max_abs_err for r in records
                                      if r.kernel == name)),
-            "ms": rec.ms, "plain_ms": rec.plain_ms,
+            "ms": rec.ms, "plain_ms": rec.plain_ms, "graph_ms": rec.graph_ms,
+            "bound_ms": rec.bound_ms, "bound_by": rec.bound_by,
+            "library_ms": rec.library_ms,
+            "pct_of_bound": 100 * rec.bound_ms / rec.graph_ms,
         })
     return entries
 
@@ -704,6 +793,10 @@ def main() -> int:
             future.result()
     log(f"build: 5 kernel libraries and the host parser in "
         f"{time.perf_counter() - t0:.2f} s")
+    for m in (segment_counts, tile_gather, tile_stages, row_sort,
+              segment_copy):
+        stem = m.__name__.rsplit(".", 1)[-1]
+        log(f"ptxas, {stem}.cu: {ptxas_report(stem)}")
 
     timing = kernel_cases(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -711,7 +804,8 @@ def main() -> int:
         cov_fastq, cov_table = edge_cases(dev, tmp)
         entries = probes(dev)
         probe_edges(dev)
-        bench_on_card(dev, main_table.distinct(), cov_table.distinct())
+        bench_launches = bench_on_card(dev, main_table.distinct(),
+                                       cov_table.distinct())
         t0 = time.perf_counter()
         fold_launches = fold_phase(dev, tmp, main_fastq, main_table,
                                    cov_fastq, cov_table)
@@ -719,6 +813,7 @@ def main() -> int:
     log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
+    main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{
         "name": "segment_counts",
         "route": "cuda",
@@ -726,9 +821,11 @@ def main() -> int:
         "replaces": "kmer_tpu/pallas/segment_counts.py:58",
         "launches": launches,
         "launches_by_path": {"single_shot (phase 4)": launches,
+                             "bench (phase 7)": bench_launches,
                              **{f"fold ({c})": n
                                 for c, n in fold_launches.items()}},
-        **timing,
+        **main_shape,
+        "at_fold_batch": timing["fold batch"],
     }, *entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

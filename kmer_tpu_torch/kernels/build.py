@@ -29,7 +29,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 NATIVE_SRC = os.path.join(REPO_ROOT, "native", "kmer_native.c")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]  # registers, spills, shared memory per kernel
 CC_FLAGS = ["-O3", "-fPIC", "-shared", "-pthread"]
 
 
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def build_library(src: str, name: str, compiler: list[str]) -> str:
     """Compile ``src`` into ``BUILD_DIR/name`` unless an up-to-date build
-    exists; returns the library path.  A failed build raises."""
+    exists; returns the library path.  The compiler's messages go to
+    ``BUILD_DIR/name.log``.  A failed build raises."""
     out = os.path.join(BUILD_DIR, name)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
@@ -57,6 +59,8 @@ def build_library(src: str, name: str, compiler: list[str]) -> str:
             raise RuntimeError(
                 f"building {name} from {src} failed "
                 f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        with open(f"{out}.log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -16,8 +16,11 @@ slot for slot what the Pallas kernel returns for the same keys split into
 (hi, lo) lanes.
 
 ``segment_counts`` takes the plain version only for a tensor on the CPU.
-For a CUDA tensor it launches the kernel or raises.  The kernel is bound
-by memory (see the note in the CUDA source).
+For a CUDA tensor it launches the kernel (one launch a call) or raises.
+Any contiguous view works, including one 8 bytes past a 16-byte boundary
+such as ``buf[1:]``: the kernel loads a key left over at either end of
+the array on its own.  The kernel is bound by memory (see the note in the
+CUDA source); it works in tiles of ``segment_counts_tile()`` keys.
 """
 
 from __future__ import annotations
@@ -34,13 +37,18 @@ _LIB = KernelLibrary("segment_counts", {
     "segment_counts_tile": [],
     "segment_counts_launch": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 })
 
 
 def build() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     return _LIB.load()
+
+
+def segment_counts_tile() -> int:
+    """The built kernel's tile, in keys (builds the library)."""
+    return build().segment_counts_tile()
 
 
 def _check(keys: torch.Tensor) -> None:
@@ -84,16 +92,13 @@ def segment_counts(keys: torch.Tensor, sentinel: int | None = None
         return segment_counts_reference(keys, sentinel)
     n = keys.numel()
     counts = torch.empty(n, dtype=torch.int32, device=keys.device)
-    n_unique = torch.empty((), dtype=torch.int32, device=keys.device)
+    n_unique = torch.zeros((), dtype=torch.int32, device=keys.device)
     if n == 0:
-        return counts, n_unique.zero_()
-    tiles = -(-n // build().segment_counts_tile())
-    scratch = torch.empty(2 * tiles, dtype=torch.int32, device=keys.device)
+        return counts, n_unique
     _LIB.launch("segment_counts_launch", keys.data_ptr(), n,
                 int(sentinel is not None),
                 0 if sentinel is None else as_int64(sentinel),
-                counts.data_ptr(), n_unique.data_ptr(), scratch.data_ptr(),
-                stream_of(keys))
+                counts.data_ptr(), n_unique.data_ptr(), stream_of(keys))
     segment_counts.launches += 1
     return counts, n_unique
 

@@ -19,7 +19,9 @@ from ..kernels.segment_copy import (
     row_copy_plan, segment_copy, segment_copy_reference)
 from ..kernels.tile_gather import tile_gather, tile_gather_reference
 from ..kernels.tile_stages import tile_stages, tile_stages_reference
-from .common import Record, host, max_abs_err, time_ms, words
+from ..kernels.words import to_u32
+from .common import (
+    Record, copy_library, host, max_abs_err, time_ms, words)
 
 R, L = 64, 128
 ITERS = 20
@@ -28,26 +30,35 @@ P1 = "scripts/probe_pallas.py:34"
 P2 = "scripts/probe_pallas2.py:26"
 
 
-def _record(name, kernel, site, device, run, plain, oracle) -> Record:
+def _record(name, kernel, site, device, run, plain, oracle, nbytes, ops,
+            library, library_fn=None) -> Record:
+    """``nbytes``, ``ops``, ``library``: see ``Record.own_times``."""
     got, ref = run(), plain()
     err = max_abs_err(got, ref)
     return Record(name, "capability", kernel, site, str(device),
                   correct=err == 0 and bool(oracle(got)), max_abs_err=err,
                   ms=time_ms(run, device, ITERS),
-                  plain_ms=time_ms(plain, device, ITERS))
+                  plain_ms=time_ms(plain, device, ITERS)).own_times(
+        run, device, nbytes, ops, library, library_fn)
 
 
 def _gather(name, site, device, x, idx, axis, oracle_axis=None):
     xt, it = words(x, device), words(idx, device)
+    it64 = it.to(torch.int64)  # torch's gathers take int64 indices
     if oracle_axis is None:
         want = x.reshape(-1)[idx]
+        library = "torch.take(x, idx)", lambda: torch.take(xt, it64)
     else:
         want = np.take_along_axis(x, idx, oracle_axis)
+        library = (f"torch.gather(x, {axis}, idx)",
+                   lambda: torch.gather(xt, axis, it64))
+    # x and idx read, one word out per index; one address per word
     return _record(
         name, "tile_gather", site, device,
         lambda: tile_gather(xt, it, axis),
         lambda: tile_gather_reference(xt, it, axis),
-        lambda got: np.array_equal(host(got, x.dtype), want))
+        lambda got: np.array_equal(host(got, x.dtype), want),
+        x.nbytes + 2 * idx.nbytes, idx.size, *library)
 
 
 def gather_lanes(device):
@@ -86,15 +97,25 @@ def dynamic_roll_lanes(device):
         "dynamic_roll_lanes(+3)", "tile_stages", f"{P1}; {P2}", device,
         lambda: tile_stages(xt, shift, "copy", 1),
         lambda: tile_stages_reference(xt, shift, "copy", 1),
-        lambda got: np.array_equal(host(got), np.roll(x, 3, 1)))
+        lambda got: np.array_equal(host(got), np.roll(x, 3, 1)),
+        2 * x.nbytes + 4, 0, "torch.roll(x, 3, 1) (shift from the host)",
+        lambda: torch.roll(xt, 3, 1))
 
 
 def _sort(name, device, x):
     xt = words(x, device)
+    unsigned = to_u32(xt)  # torch sorts int64, not uint32
+    width = x.shape[1]
+    stages = int(np.log2(width)) * (int(np.log2(width)) + 1) // 2
+    # a bitonic network: width / 2 compare-exchanges (a min and a max) a
+    # row per stage
     return _record(
         name, "row_sort", P2, device,
         lambda: row_sort(xt), lambda: row_sort_reference(xt),
-        lambda got: np.array_equal(host(got), np.sort(x, axis=1)))
+        lambda got: np.array_equal(host(got), np.sort(x, axis=1)),
+        2 * x.nbytes, x.shape[0] * width * stages,
+        "torch.sort(x, dim=-1) on the unsigned values as int64",
+        lambda: torch.sort(unsigned, dim=-1))
 
 
 def inkernel_sort_lanes(device):
@@ -121,8 +142,12 @@ def _copy(name, site, device, src, plan, want):
     def plain():
         return segment_copy_reference(st, plan)
 
+    # the destination written once (zeros where no copy lands), the words
+    # that stand in it read once, two offsets per copy
     return _record(name, "segment_copy", site, device, run, plain,
-                   lambda got: np.array_equal(host(got), want.reshape(-1)))
+                   lambda got: np.array_equal(host(got), want.reshape(-1)),
+                   4 * plan.n_out + 4 * want.size + 16 * plan.copies, 0,
+                   *copy_library(st, plan))
 
 
 def dyn_dma_prefetch(device):
@@ -169,12 +194,15 @@ def gather_axis0_via_transpose(device):
     x = np.arange(R * L, dtype=np.uint32).reshape(R, L)
     idx = np.random.default_rng(3).integers(0, R, (R, L)).astype(np.int32)
     xt, it = words(x.T.copy(), device), words(idx.T.copy(), device)
+    it64 = it.to(torch.int64)
     return _record(
         "gather_axis0_via_transpose", "tile_gather",
         "scripts/probe_pallas3.py:70", device,
         lambda: tile_gather(xt, it, 1).T,
         lambda: tile_gather_reference(xt, it, 1).T,
-        lambda got: np.array_equal(host(got), np.take_along_axis(x, idx, 0)))
+        lambda got: np.array_equal(host(got), np.take_along_axis(x, idx, 0)),
+        x.nbytes + 2 * idx.nbytes, idx.size,
+        "torch.gather(x.T, 1, idx.T).T", lambda: torch.gather(xt, 1, it64).T)
 
 
 PROBES = [

@@ -1,15 +1,22 @@
-"""What the probe families share: the result record, timing, comparison."""
+"""What the probe families share: the result record, timing, the least
+time the card could take, comparison."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import subprocess
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..bench import hbm_bytes_per_s
+from ..kernels.segment_copy import CopyPlan
 from ..kernels.words import to_u32
+
+INT32_LANES_PER_SM = 64  # Hopper: 4 partitions x 16 INT32 lanes
 
 
 @dataclasses.dataclass
@@ -26,6 +33,15 @@ class Record:
     version).  ``ops`` is the script's operation count for a rate (stages
     times words) and ``copies`` / ``nbytes`` the copies and bytes moved
     (read + write) for a copy family.
+
+    On a card, ``graph_ms`` is one kernel call's own time, from many calls
+    captured in one CUDA graph (no host launch cost; where bytes set the
+    bound, each call with its inputs out of the L2, see ``graph_ms``);
+    ``bound_ms`` the least time the card could take for the same function
+    (``bound_by`` "bytes" or "operations", see ``bound_ms``); ``library``
+    the one PyTorch call that computes the same function (``library_ms``,
+    timed the same way), or "none: " and the reason.  Each is None on the
+    CPU.
     """
 
     name: str
@@ -40,13 +56,20 @@ class Record:
     ops: int | None = None
     copies: int | None = None
     nbytes: int | None = None
+    graph_ms: float | None = None
+    bound_ms: float | None = None
+    bound_by: str | None = None
+    library: str | None = None
+    library_ms: float | None = None
 
     def line(self) -> str:
         """The human-readable line the probe prints."""
         who = "kernel" if self.device.startswith("cuda") else "wrapper"
         if self.family == "capability":
-            return (f"{self.name}: OK correct: {self.correct}  "
-                    f"({who} {self.ms:.4f} ms, plain {self.plain_ms:.4f} ms)")
+            return "; ".join(
+                [f"{self.name}: OK correct: {self.correct}  ({who} "
+                 f"{self.ms:.4f} ms, plain {self.plain_ms:.4f} ms)"]
+                + self._own())
         parts = [f"{self.name}: correct: {self.correct}"]
         for who, ms in ((who, self.ms), ("plain", self.plain_ms)):
             s = f"{who} {ms:.4f} ms"
@@ -56,7 +79,32 @@ class Record:
                 s += (f" -> {self.copies / ms * 1e3:.1f} copies/s, "
                       f"{self.nbytes / ms / 1e6:.3f} GB/s")
             parts.append(s)
-        return "; ".join(parts)
+        return "; ".join(parts + self._own())
+
+    def _own(self) -> list[str]:
+        if self.graph_ms is None:
+            return []
+        lib = (self.library if self.library_ms is None
+               else f"{self.library} {self.library_ms:.4f} ms")
+        return [f"graph {self.graph_ms:.4f} ms, bound {self.bound_ms:.6f} ms "
+                f"({self.bound_by}, {100 * self.bound_ms / self.graph_ms:.2f}%)"
+                f", library {lib}"]
+
+    def own_times(self, run: Callable[[], object], device: torch.device,
+                  nbytes: int, ops: int, library: str,
+                  library_fn: Callable[[], object] | None = None) -> "Record":
+        """Fills the card-only fields: the bound of ``nbytes`` moved and
+        ``ops`` int32 operations, and ``run``'s and ``library_fn``'s graph
+        times, cold where bytes set the bound.  On the CPU it leaves them
+        None."""
+        if device.type == "cuda":
+            self.bound_ms, self.bound_by = bound_ms(nbytes, ops, device)
+            cold = self.bound_by == "bytes"
+            self.graph_ms = graph_ms(run, device, cold=cold)
+            self.library = library
+            if library_fn is not None:
+                self.library_ms = graph_ms(library_fn, device, cold=cold)
+        return self
 
 
 def time_ms(fn: Callable[[], object], device: torch.device,
@@ -78,6 +126,107 @@ def time_ms(fn: Callable[[], object], device: torch.device,
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def graph_ms(fn: Callable[[], object], device: torch.device,
+             budget_ms: float = 2.0, cold: bool = False) -> float:
+    """Mean ms of one ``fn()`` call with no host launch cost: enough calls
+    to fill about ``budget_ms`` (1 to 200) captured in one CUDA graph,
+    replayed three times between CUDA events.
+
+    Replayed calls on the same inputs find them in the L2 when they fit
+    there.  With ``cold``, each call follows a read of twice the L2, so it
+    takes its inputs from device memory, as a call on inputs larger than
+    the L2 does; the time of those reads alone, from a graph of their
+    own, is taken off.  Needs a card."""
+    once = time_ms(fn, device, 1)
+    calls = max(1, min(200, int(budget_ms / max(once, 1e-3))))
+    if not cold:
+        return _replay_ms([fn], calls, device)
+    evict = _l2_eviction(device)
+    return (_replay_ms([evict, fn], calls, device)
+            - _replay_ms([evict], calls, device))
+
+
+def _replay_ms(fns: list[Callable[[], object]], calls: int,
+               device: torch.device) -> float:
+    """ms of one round of ``fns`` in a CUDA graph of ``calls`` rounds."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for fn in fns:  # capture wants its first calls off the default stream
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(stop) / (3 * calls)
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_eviction(device: torch.device) -> Callable[[], object]:
+    """A call that reads twice the card's L2 (a sum of float32 words): the
+    lines it leaves there are clean, so evicting them later costs
+    nothing."""
+    words = torch.cuda.get_device_properties(device).L2_cache_size // 2
+    buf = torch.ones(words, dtype=torch.float32, device=device)
+    sink = torch.empty((), dtype=torch.float32, device=device)
+    return lambda: torch.sum(buf, 0, out=sink)
+
+
+def copy_library(src: torch.Tensor, plan: CopyPlan
+                 ) -> tuple[str, Callable[[], torch.Tensor] | None]:
+    """The one PyTorch call that computes ``plan``'s destination, where
+    there is one, or ("none: " and the reason, None).  When the copies'
+    destinations lie one after another in copy order and fill the
+    destination, it is the source's windows of ``seg`` words gathered at
+    the source offsets: ``index_select`` of ``src.unfold``, with the
+    offsets on the device."""
+    out_off = plan.out_off.cpu().numpy()
+    if np.any(np.diff(np.sort(out_off)) < plan.seg):
+        return "none: overlapping destinations, the last writer wins", None
+    if not (plan.n_out == plan.copies * plan.seg
+            and np.array_equal(out_off, np.arange(plan.copies) * plan.seg)):
+        return "none: the destinations do not fill it in copy order", None
+    windows = src.reshape(-1).unfold(0, plan.seg, 1)
+    return ("src.unfold(0, seg, 1).index_select(0, in_off)",
+            lambda: windows.index_select(0, plan.in_off).reshape(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def int32_ops_per_s(device: torch.device) -> float:
+    """The card's int32 issue rate: SMs x INT32 lanes x the highest SM
+    clock that nvidia-smi reports."""
+    index = device.index if device.index is not None else 0
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(out.stdout.split()[0]) * 1e6
+
+
+def bound_ms(nbytes: int, ops: int, device: torch.device
+             ) -> tuple[float, str]:
+    """The least ms the card could take to move ``nbytes`` (each input
+    read once, each output written once) at its published HBM rate and
+    to issue ``ops`` int32 operations, the larger of the two, and which
+    one it is ("bytes" or "operations")."""
+    by_bytes = 1e3 * nbytes / hbm_bytes_per_s(device)
+    by_ops = 1e3 * ops / int32_ops_per_s(device)
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def words(a: np.ndarray, device: torch.device) -> torch.Tensor:

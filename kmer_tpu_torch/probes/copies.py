@@ -23,7 +23,7 @@ import torch
 
 from ..kernels.segment_copy import (
     copy_plan, row_copy_plan, segment_copy, segment_copy_reference)
-from .common import Record, max_abs_err, time_ms
+from .common import Record, copy_library, max_abs_err, time_ms
 
 R3A_WORDS = ((1 << 20) * 150 // (130 << 13)) * (130 << 13)  # 156,549,120
 R3B_WORDS = 130 << 20  # 136,314,880 = 1,064,960 rows of 128
@@ -39,13 +39,16 @@ def _copy(name, site, device, src, plan) -> Record:
     err = max_abs_err(segment_copy(src, plan, out_k),
                       segment_copy_reference(src, plan, out_p))
     iters = 20 if plan.copies * plan.seg <= 1 << 20 else 3
+    nbytes = 2 * 4 * plan.copies * plan.seg
     return Record(
         name, "copies", "segment_copy", site, str(device), correct=err == 0,
         max_abs_err=err,
         ms=time_ms(lambda: segment_copy(src, plan, out_k), device, iters),
         plain_ms=time_ms(lambda: segment_copy_reference(src, plan, out_p),
                          device, 1),
-        copies=plan.copies, nbytes=2 * 4 * plan.copies * plan.seg)
+        copies=plan.copies, nbytes=nbytes).own_times(
+        lambda: segment_copy(src, plan, out_k), device,
+        nbytes + 16 * plan.copies, 0, *copy_library(src, plan))
 
 
 def source(n: int, device: torch.device, seed: int = 0) -> torch.Tensor:

@@ -24,6 +24,11 @@ from ..kernels.tile_stages import tile_stages, tile_stages_reference
 from .common import Record, max_abs_err, time_ms, words
 
 L = 128
+# int32 operations a stage costs a word: take2 compares (hi, lo) with its
+# partner's (two compares, an and, an or) and selects both lanes by one
+# predicate; a roll is addressing, not arithmetic
+OP_COST = {"take2": 4, "min": 1, "min_add1": 2, "add1": 1, "copy": 0}
+LOOP = "none: a loop of dependent stages is no one call"
 
 
 def _random_words(rng, shape):
@@ -49,11 +54,18 @@ def _stages(name, site, device, rows, op, axis, shifts, reps=1,
     run, plain = chain(tile_stages), chain(tile_stages_reference)
     err = max_abs_err(run(), plain())
     iters = 20 if rows * len(shifts) * reps <= 1 << 16 else 3
+    stages = len(shifts) * reps
+    lanes = 2 if op == "take2" else 1
+    library = LOOP, None
+    if op == "add1":  # the stages add up to one add, mod 2^32
+        library = f"x + {stages}", lambda: h + stages
     return Record(name, "rates", "tile_stages", site, str(device),
                   correct=err == 0,
                   max_abs_err=err, ms=time_ms(run, device, iters),
                   plain_ms=time_ms(plain, device, 1),
-                  ops=rows * L * len(shifts) * reps if count_ops else None)
+                  ops=rows * L * stages if count_ops else None).own_times(
+        run, device, 2 * lanes * rows * L * 4 + 4 * len(shifts),
+        rows * L * stages * OP_COST[op], *library)
 
 
 def _gather(name, site, device, tiles, rows, axis, steps, seed=1):
@@ -68,14 +80,18 @@ def _gather(name, site, device, tiles, rows, axis, steps, seed=1):
         tile_gather_reference(big, it, axis, tile_rows=rows, steps=steps,
                               add=1))
 
+    def run():
+        return tile_gather(big, it, axis, tile_rows=rows, steps=steps, add=1)
+
+    # words and indices read, words written; one add a word a step
     return Record(
         name, "rates", "tile_gather", site, str(device), correct=err == 0,
-        max_abs_err=err,
-        ms=time_ms(lambda: tile_gather(big, it, axis, tile_rows=rows,
-                                       steps=steps, add=1), device, 3),
+        max_abs_err=err, ms=time_ms(run, device, 3),
         plain_ms=time_ms(lambda: tile_gather_reference(
             big, it, axis, tile_rows=rows, steps=steps, add=1), device, 1),
-        ops=tiles * rows * L * steps)
+        ops=tiles * rows * L * steps).own_times(
+        run, device, 3 * tiles * rows * L * 4, tiles * rows * L * steps,
+        "none: a loop of dependent gathers is no one call")
 
 
 def _doubling(n, mod=7, base=1, sign=1):

@@ -18,12 +18,13 @@ from kmer_tpu_torch.kernels.row_sort import row_sort, row_sort_reference
 from kmer_tpu_torch.kernels.segment_copy import (
     copy_plan, segment_copy, segment_copy_reference)
 from kmer_tpu_torch.kernels.segment_counts import (
-    segment_counts, segment_counts_reference)
+    segment_counts, segment_counts_reference, segment_counts_tile)
 from kmer_tpu_torch.kernels.tile_gather import (
     tile_gather, tile_gather_reference)
 from kmer_tpu_torch.kernels.tile_stages import (
     tile_stages, tile_stages_reference)
 from kmer_tpu_torch.packed import SIGN_FLIP
+from segment_edges import EDGES, LARGE, edge_runs
 
 L = 128
 
@@ -45,13 +46,15 @@ def _cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n, distinct, sentinel", [
-    (1, 1, False), (2, 2, False), (5000, 7, False), (4096 * 5 + 7, 1, False),
-    (3000, 15, True), (1 << 20, 1 << 18, True)])
-def test_kernel_matches_reference_on_cuda(n, distinct, sentinel):
+@pytest.mark.parametrize("tiles, extra, distinct, sentinel", [
+    (0, 1, 1, False), (0, 2, 2, False), (0, 5000, 7, False),
+    (5, 7, 1, False), (0, 3000, 15, True), (256, 0, 1 << 18, True)])
+def test_kernel_matches_reference_on_cuda(tiles, extra, distinct, sentinel):
     """The segment-count kernel, slot for slot, on sorted keys with bit 63
-    set on some and (optionally) the folded all-ones sentinel."""
+    set on some and (optionally) the folded all-ones sentinel; n is
+    ``tiles`` of the built kernel's tile plus ``extra``."""
     dev = _cuda()
+    n = tiles * segment_counts_tile() + extra
     rng = np.random.default_rng(n)
     vals = rng.integers(-(1 << 62), 1 << 62, distinct) * 2
     keys = torch.from_numpy(rng.choice(vals, n)).to(dev)
@@ -66,10 +69,52 @@ def test_kernel_matches_reference_on_cuda(n, distinct, sentinel):
     assert torch.equal(got, ref) and int(got_u) == int(ref_u)
 
 
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
+SEG_SENTINEL = 1 << 62
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", EDGES + LARGE)
+def test_kernel_tile_edges_on_cuda(name, aligned):
+    """The kernel equals the plain version at the edges of its tiles, on a
+    16-byte-aligned tensor and on a view 8 bytes past one (``buf[1:]``),
+    which the wrapper takes as it is."""
+    dev = _cuda()
+    lengths, sentinel_run = edge_runs(name, segment_counts_tile())
+    host = np.r_[np.repeat(np.arange(lengths.size), lengths),
+                 np.full(sentinel_run, SEG_SENTINEL)]
+    sentinel = SEG_SENTINEL if sentinel_run else None
+    n = host.size
+    buf = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    keys = buf[:n] if aligned else buf[1:]
+    keys.copy_(torch.from_numpy(host))
+    assert keys.data_ptr() % 16 == (0 if aligned else 8)
+    before = segment_counts.launches
+    got, got_u = segment_counts(keys, sentinel)
+    assert segment_counts.launches == before + 1
+    ref, ref_u = segment_counts_reference(keys, sentinel)
+    assert torch.equal(got, ref) and int(got_u) == int(ref_u)
+
+
+@pytest.mark.gpu
+def test_kernel_above_2_30_slots_on_cuda():
+    """keys = arange(n) >> 10 with n above 2^30: every tail holds 1024, the
+    last the remainder, n_unique = ceil(n / 1024).  Catches 32-bit slot or
+    byte offsets (~13 GB on the card)."""
+    dev = _cuda()
+    n = (1 << 30) + 12345
+    keys = torch.arange(n, dtype=torch.int64, device=dev) >> 10
+    before = segment_counts.launches
+    counts, n_unique = segment_counts(keys)
+    assert segment_counts.launches == before + 1
+    del keys
+    full = n // 1024 * 1024
+    blocks = counts[:full].view(-1, 1024)
+    assert bool((blocks[:, :1023] == 0).all())
+    assert bool((blocks[:, 1023] == 1024).all())
+    rest = counts[full:]
+    assert bool((rest[:-1] == 0).all()) and int(rest[-1]) == n - full
+    assert int(n_unique) == -(-n // 1024)
 
 
 @pytest.mark.gpu

@@ -623,6 +623,52 @@ def test_run_all_echoes_one_line_per_probe():
     assert all(": OK correct: True" in ln for ln in lines[1:])
 
 
+def test_card_only_fields_stay_empty_on_cpu():
+    """A graph time, a bound and a library time are card numbers: a CPU
+    run leaves them None and prints none of them."""
+    recs = run_all("cpu", only="capability", echo=lambda _: None)
+    recs += list(rates.run(torch.device("cpu"), small=True))[:2]
+    for r in recs:
+        assert (r.graph_ms, r.bound_ms, r.bound_by, r.library,
+                r.library_ms) == (None,) * 5
+        assert "graph" not in r.line()
+
+
+def test_bound_is_the_larger_of_bytes_and_operations(monkeypatch):
+    from kmer_tpu_torch.probes import common
+
+    monkeypatch.setattr(common, "hbm_bytes_per_s", lambda device: 1e12)
+    monkeypatch.setattr(common, "int32_ops_per_s", lambda device: 1e13)
+    dev = torch.device("cuda", 0)
+    assert common.bound_ms(10 ** 9, 10 ** 9, dev) == (1.0, "bytes")
+    assert common.bound_ms(10 ** 6, 10 ** 11, dev) == (10.0, "operations")
+
+
+_OFFS = np.random.default_rng(9).integers(0, 4000, 50)
+
+
+@pytest.mark.parametrize("plan, reason", [
+    (copy_plan(_OFFS, np.arange(50) * 33, 33, 4096, 50 * 33), None),
+    (copy_plan([12], [0], 1024, 4096, 1024), None),
+    (row_copy_plan(_OFFS[:8] % 30, np.arange(8) * 3, 3, L, 32, 24), None),
+    (copy_plan([1, 2, 3], [0, 0, 0], 7, 4096, 7), "none: overlapping"),
+    (copy_plan(_OFFS[:3], [66, 0, 33], 33, 4096, 99), "none: the dest"),
+    (copy_plan([0], [0], 10, 4096, 20), "none: the dest"),
+], ids=["r3a", "single", "rows", "overlap", "out_of_order", "gap"])
+def test_copy_library_computes_the_plan_where_one_call_does(plan, reason):
+    """The yardstick of a copy family is one ``index_select`` of the
+    source's windows where the destinations fill the output in copy
+    order, and "none" with the reason elsewhere."""
+    from kmer_tpu_torch.probes.common import copy_library
+
+    src = _t(_u32(4096, 8))
+    label, fn = copy_library(src, plan)
+    if reason is None:
+        assert torch.equal(fn(), segment_copy_reference(src, plan))
+    else:
+        assert fn is None and label.startswith(reason)
+
+
 # --- wrapper contracts ---------------------------------------------------
 
 
