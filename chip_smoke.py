@@ -7,7 +7,8 @@ Phases, each of which must pass or the script exits nonzero:
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels (nvcc) and the host parser (cc) from the
-   sources in this checkout, and prints ptxas's registers and spills;
+   sources in this checkout, and prints ptxas's registers and spills
+   (none allowed in the two stage and copy kernels);
 3. kernel vs plain: the segment-count kernel must equal its plain PyTorch
    version exactly on the cases of tests/test_pallas.py, at the edges of
    its tiles (on aligned tensors and on views 8 bytes past 16), and at
@@ -28,8 +29,11 @@ Phases, each of which must pass or the script exits nonzero:
    rise; each probe prints its kernel's own time (many calls in one CUDA
    graph, each with its inputs out of the L2 where bytes set the bound),
    its bound and its library call's time; then kernel vs plain
-   at edge shapes (8-row tiles, shift 0, one
-   copy of one word, a copy that ends at the source's last word);
+   at edge shapes (tests/kernel_edges.py: stage loops at 1 to 4,096
+   lanes and tile rows, empty and overflowing schedules; overlapping
+   copies, one copy of one word, a copy that ends at the source's last
+   word), and the overlap path's worst case timed: 32,768 copies of
+   1,024 words at random destinations, and all at one offset;
 7. bench: ``run_bench`` (fused and coverage), ``run_bench_stream`` and
    ``run_chr_bench`` on the card, their distinct counts held against
    phases 4 and 5 (and chr against a second route and, at 16M bases, a
@@ -184,6 +188,17 @@ def ptxas_report(stem: str) -> str:
                          if "Used" in ln or "spill" in ln)
 
 
+def check_no_spills(stem: str) -> None:
+    """ptxas must report 0 spill bytes for every kernel of ``stem``."""
+    import re
+
+    from kmer_tpu_torch.kernels.build import BUILD_DIR
+
+    with open(os.path.join(BUILD_DIR, f"lib{stem}.so.log")) as f:
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", f.read())]
+    check(bool(spills) and not any(spills), f"ptxas: no spills in {stem}.cu")
+
+
 def time_cuda(fn, iters: int) -> float:
     import torch
 
@@ -218,7 +233,7 @@ def kernel_cases(dev) -> dict:
     from kmer_tpu_torch.packed import SIGN_FLIP, as_int64, key_from_hi_lo
     from kmer_tpu_torch.probes.common import bound_ms
 
-    edges = load_by_path(os.path.join(ROOT, "tests", "segment_edges.py"))
+    edges = load_by_path(os.path.join(ROOT, "tests", "kernel_edges.py"))
 
     def compare(keys, sentinel, what):
         kc, ku = segment_counts(keys, sentinel)
@@ -269,7 +284,7 @@ def kernel_cases(dev) -> dict:
         compare(sorted_pairs(hi, lo), sentinel, what)
     compare(torch.zeros(0, dtype=torch.int64, device=dev), None, "n = 0")
 
-    # the tile edges (tests/segment_edges.py: run i holds key i, then a
+    # the tile edges (tests/kernel_edges.py: run i holds key i, then a
     # sentinel run), on an aligned tensor and on a view 8 bytes past one
     for what in edges.EDGES + edges.LARGE:
         lengths, sentinel_run = edges.edge_runs(what, t)
@@ -472,8 +487,82 @@ def probes(dev) -> list[dict]:
     return entries
 
 
-def probe_edges(dev) -> None:
-    """Kernel == plain version at edge shapes, exactly."""
+# the overlap path's worst case: 32,768 copies of 1,024 words into 2^25
+# words (the r3a serial family's copies), at random destinations and all
+# at one offset
+WORST_G, WORST_SEG = 32768, 1024
+
+
+def device_ops(fn) -> tuple[int | None, list[str]]:
+    """(count, names) of the device operations (kernels, memsets) that one
+    call of ``fn`` runs, from a ``torch.profiler`` trace; count None where
+    the trace holds no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return len(names) or None, names
+
+
+def overlap_worst_cases(dev, rng) -> dict:
+    """Times the two worst-case overlap plans (a CUDA graph, cold) beside
+    the plain version, holding each against it; returns their records."""
+    import torch
+
+    from kmer_tpu_torch.kernels.segment_copy import (
+        copy_plan, segment_copy, segment_copy_reference)
+    from kmer_tpu_torch.probes.common import bound_ms, graph_ms, max_abs_err
+    from kmer_tpu_torch.probes.copies import source
+
+    n_out = WORST_G * WORST_SEG
+    src = source(n_out, dev, seed=SEED)
+    in_off = rng.integers(0, n_out - WORST_SEG + 1, WORST_G)
+    out = {}
+    for what, out_off in (
+            ("random", rng.integers(0, n_out - WORST_SEG + 1, WORST_G)),
+            ("one_offset", np.zeros(WORST_G, np.int64))):
+        plan = copy_plan(in_off, out_off, WORST_SEG, n_out, n_out,
+                         device=dev)
+        check(plan.overlap, f"worst case {what}: destinations overlap")
+        got = torch.zeros(n_out, dtype=src.dtype, device=dev)
+        segment_copy(src, plan, got)
+        t0 = time.perf_counter()
+        ref = segment_copy_reference(src, plan)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = max_abs_err(got, ref)
+        check(err == 0, f"worst-case overlap {what}: kernel == plain")
+        # the words some copy covers are read once and written once
+        cover = np.zeros(n_out + 1, np.int64)
+        np.add.at(cover, out_off, 1)
+        np.add.at(cover, out_off + WORST_SEG, -1)
+        covered = int((np.cumsum(cover[:-1]) > 0).sum())
+        bound, by = bound_ms(8 * covered + 16 * WORST_G, 0, dev)
+        ms = graph_ms(lambda: segment_copy(src, plan, got), dev, cold=True)
+        ops, names = device_ops(lambda: segment_copy(src, plan, got))
+        out[what] = {"copies": WORST_G, "seg": WORST_SEG, "n_out": n_out,
+                     "covered_words": covered, "device_ops_a_call": ops,
+                     "max_abs_err": float(err), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        log(f"segment_copy worst-case overlap, {what}: G={WORST_G} "
+            f"SEG={WORST_SEG} into {n_out} words ({covered} covered): "
+            f"graph {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.6f} "
+            f"ms ({by}, {100 * bound / ms:.2f}%); a call's device operations "
+            f"in a torch.profiler trace: {ops} {names}")
+        del got, ref
+    return out
+
+
+def probe_edges(dev) -> dict:
+    """Kernel == plain version at edge shapes, exactly; returns the
+    worst-case overlap plans' records."""
     import torch
 
     from kmer_tpu_torch.kernels.row_sort import row_sort, row_sort_reference
@@ -484,6 +573,7 @@ def probe_edges(dev) -> None:
     from kmer_tpu_torch.kernels.tile_stages import (
         tile_stages, tile_stages_reference)
 
+    edges = load_by_path(os.path.join(ROOT, "tests", "kernel_edges.py"))
     rng = np.random.default_rng(SEED + 2)
 
     def u32(shape):
@@ -506,15 +596,19 @@ def probe_edges(dev) -> None:
     same(tile_gather(x8[:1, :1].contiguous(), one, None),
          tile_gather_reference(x8[:1, :1].contiguous(), one, None),
          "tile_gather, a one-word table")
-    lo8 = u32((8, 128))
-    for shifts in ([0], [0, 0, 0], [-1, 129, 7, -200]):
-        sched = torch.tensor(shifts, dtype=torch.int32, device=dev)
-        for op in ("take2", "min", "min_add1", "add1", "copy"):
-            lo = lo8 if op == "take2" else None
-            for axis in (1, 0):
-                same(tile_stages(x8, sched, op, axis, lo=lo),
-                     tile_stages_reference(x8, sched, op, axis, lo=lo),
-                     f"tile_stages {op} axis {axis} shifts {shifts}")
+    shapes = [(8, 128, axis, None) for axis in (1, 0)] + edges.STAGE_SHAPES
+    for n_rows, lanes, axis, tile_rows in shapes:
+        x, lo2 = u32((n_rows, lanes)), u32((n_rows, lanes))
+        for name, shifts in edges.SCHEDULES.items():
+            sched = torch.tensor(shifts, dtype=torch.int32, device=dev)
+            for op in ("take2", "min", "min_add1", "add1", "copy"):
+                lo = lo2 if op == "take2" else None
+                same(tile_stages(x, sched, op, axis, lo=lo,
+                                 tile_rows=tile_rows),
+                     tile_stages_reference(x, sched, op, axis, lo=lo,
+                                           tile_rows=tile_rows),
+                     f"tile_stages {op} [{n_rows},{lanes}] axis {axis} "
+                     f"tile rows {tile_rows} schedule {name}")
     for shape in ((1, 128), (8, 128), (3, 1), (5, 1024)):
         x = u32(shape)
         same(row_sort(x), row_sort_reference(x), f"row_sort {shape}")
@@ -525,13 +619,21 @@ def probe_edges(dev) -> None:
         in_off = rng.integers(0, n - seg + 1, g)
         if at_end:
             in_off[-1] = n - seg  # the copy ends at the source's last word
-        for serial in (False, True):
-            plan = copy_plan(in_off, np.arange(g) * seg, seg, n, g * seg,
-                             serial=serial, device=dev)
-            same(segment_copy(src, plan), segment_copy_reference(src, plan),
-                 f"segment_copy G={g} SEG={seg} serial={serial}")
+        plan = copy_plan(in_off, np.arange(g) * seg, seg, n, g * seg,
+                         device=dev)
+        same(segment_copy(src, plan), segment_copy_reference(src, plan),
+             f"segment_copy G={g} SEG={seg}")
+    for name in edges.OVERLAP_PLANS:
+        in_off, out_off, seg, n_in, n_out = edges.overlap_plan(name, SEED)
+        plan = copy_plan(in_off, out_off, seg, n_in, n_out, device=dev)
+        small = src[:n_in].contiguous()
+        same(segment_copy(small, plan), segment_copy_reference(small, plan),
+             f"segment_copy overlapping plan {name}")
     torch.cuda.synchronize()
-    log("probe kernels == plain at the edge shapes")
+    log(f"probe kernels == plain at the edge shapes ({len(shapes)} stage "
+        f"shapes x {len(edges.SCHEDULES)} schedules x 5 ops; "
+        f"{len(edges.OVERLAP_PLANS)} overlapping copy plans)")
+    return overlap_worst_cases(dev, rng)
 
 
 def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
@@ -797,13 +899,17 @@ def main() -> int:
               segment_copy):
         stem = m.__name__.rsplit(".", 1)[-1]
         log(f"ptxas, {stem}.cu: {ptxas_report(stem)}")
+    for stem in ("tile_stages", "segment_copy"):
+        check_no_spills(stem)
 
     timing = kernel_cases(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches, main_fastq, main_table = main_path(dev, tmp)
         cov_fastq, cov_table = edge_cases(dev, tmp)
         entries = probes(dev)
-        probe_edges(dev)
+        worst = probe_edges(dev)
+        next(e for e in entries if e["name"] == "segment_copy")[
+            "overlap_worst_case"] = worst
         bench_launches = bench_on_card(dev, main_table.distinct(),
                                        cov_table.distinct())
         t0 = time.perf_counter()

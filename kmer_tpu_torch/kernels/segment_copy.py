@@ -10,16 +10,22 @@ Replaces the Pallas probe DMAs: ``scripts/probe_pallas2.py`` and
 A ``CopyPlan`` holds G copies ``out[out_off[g] : out_off[g] + seg] =
 src[in_off[g] : in_off[g] + seg]`` over flat word arrays, with the
 offsets already on the device (the TPU kernels prefetched them as
-scalars ahead of the grid).  ``copy_plan`` checks the offsets once on the
-host: every copy must lie inside its array, and where two destinations
-overlap the plan runs the copies in order, so the last copy wins, as it
-did on the TPU, whose grid ran in order.  Otherwise ``serial`` chooses
-between one block per copy (all in flight) and one block that walks the
-copies in order.  A copy of row blocks is the same copy with offsets and
-length times the row width (``row_copy_plan``).
+scalars ahead of the grid).  The copies take effect in order: where two
+destinations overlap, the later copy wins, as on the TPU, whose grid ran
+in order.  ``copy_plan`` checks the offsets once on the host: every copy
+must lie inside its array, and ``overlap`` records whether two
+destinations overlap.  The kernel runs every copy at once across the
+card either way; ``overlap`` alone chooses whether it first resolves each
+word's last writer (see ``csrc/segment_copy.cu``).  ``serial`` keeps what
+the caller asked for (the probes' "serial issue" of the TPU scripts) and
+changes nothing in the result.  A copy of row blocks is the same copy
+with offsets and length times the row width (``row_copy_plan``).
 
 ``segment_copy`` takes the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+for a CUDA tensor it launches the kernel or raises.  It refuses an
+``out`` that shares storage with the source: copy g + 1 would then read
+what copy g wrote, which the in-order result depends on and the kernel,
+running every copy at once, does not reproduce.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from .words import check_words, stream_of
 _LIB = KernelLibrary("segment_copy", {
     "segment_copy_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p],
 })
 
 
@@ -48,7 +55,9 @@ def build():
 @dataclasses.dataclass(frozen=True)
 class CopyPlan:
     """G checked copies of ``seg`` words from an ``n_in``-word source into
-    an ``n_out``-word destination; offsets are int64 [G] on the device."""
+    an ``n_out``-word destination; offsets are int64 [G] on the device.
+    ``serial``: the caller asked for in-order issue (a label only);
+    ``overlap``: two destinations overlap, so the last writer decides."""
 
     in_off: torch.Tensor
     out_off: torch.Tensor
@@ -56,6 +65,7 @@ class CopyPlan:
     n_in: int
     n_out: int
     serial: bool
+    overlap: bool
 
     @property
     def copies(self) -> int:
@@ -77,12 +87,13 @@ def copy_plan(in_off, out_off, seg: int, n_in: int, n_out: int,
         if io.size and (off.min() < 0 or off.max() + seg > n):
             raise ValueError(f"a {what} copy of {seg} words runs outside "
                              f"its {n} words")
-    overlap = bool((np.diff(np.sort(oo)) < seg).any())
+    if io.size >= 1 << 31:
+        raise ValueError(f"at most 2^31 - 1 copies, got {io.size}")
     return CopyPlan(
         in_off=torch.from_numpy(io).to(device),
         out_off=torch.from_numpy(oo).to(device),
-        seg=int(seg), n_in=int(n_in), n_out=int(n_out),
-        serial=serial or overlap)
+        seg=int(seg), n_in=int(n_in), n_out=int(n_out), serial=bool(serial),
+        overlap=bool((np.diff(np.sort(oo)) < seg).any()))
 
 
 def row_copy_plan(in_rows, out_rows, seg_rows: int, width: int,
@@ -131,16 +142,24 @@ def segment_copy_reference(src: torch.Tensor, plan: CopyPlan,
 def segment_copy(src: torch.Tensor, plan: CopyPlan,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Runs ``plan`` from ``src`` into ``out`` (default: a new zeroed
-    destination) and returns it."""
+    destination, never one that shares storage with ``src``) and returns
+    it."""
     _check(src, plan, out)
+    if out is not None and (out.untyped_storage().data_ptr()
+                            == src.untyped_storage().data_ptr()):
+        raise ValueError("out shares storage with the source")
     if src.device.type == "cpu":
         return segment_copy_reference(src, plan, out)
     if out is None:
         out = torch.zeros(plan.n_out, dtype=src.dtype, device=src.device)
     if plan.copies:
+        owner = (torch.empty(plan.n_out, dtype=torch.int32, device=src.device)
+                 if plan.overlap else None)
         _LIB.launch("segment_copy_launch", src.data_ptr(), out.data_ptr(),
-                    plan.in_off.data_ptr(), plan.out_off.data_ptr(), plan.seg,
-                    plan.copies, int(plan.serial), stream_of(src))
+                    plan.in_off.data_ptr(), plan.out_off.data_ptr(),
+                    None if owner is None else owner.data_ptr(), plan.seg,
+                    plan.copies, plan.n_out, int(plan.overlap),
+                    stream_of(src))
         segment_copy.launches += 1
     return out
 

@@ -25,8 +25,13 @@ is a shift of -d), along lanes, or along rows inside each tile of
   stages);
 * ``copy``: the partner itself (a roll by a shift held on the device).
 
-The wrapper takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+On the card, ``add1`` and ``copy`` compose into one pass (an add of the
+stage count; one roll by the schedule's sum, taken on the device), and
+the dependent ops keep each row (axis 1) or tile column (axis 0) on chip
+for every stage, one warp a line of up to 1,024 words and one block a
+longer one (``csrc/tile_stages.cu``).  The wrapper takes the plain version
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 from .build import KernelLibrary
 from .words import MASK32, check_words, from_u32, stream_of, to_u32
 
-GROUP = 4096  # words per lane a block keeps resident (kGroup in the source)
+GROUP = 4096  # the longest line the kernel holds on chip (kMaxLine)
 OPS = {"take2": 0, "min": 1, "min_add1": 2, "add1": 3, "copy": 4}
 
 _LIB = KernelLibrary("tile_stages", {

@@ -154,7 +154,8 @@ def dyn_dma_prefetch(device):
     """probe_pallas2.py (f) k_dma: four copies of 4 rows of a [256, 256]
     source at row offsets off // 256 into the same [4, 256] block.  The
     TPU ran the grid in order, so the last copy (offset 40000) stands;
-    the plan sees the overlap and runs the copies in order."""
+    the plan sees the overlap, and the kernel resolves each word's last
+    writer."""
     src = np.arange(1 << 16, dtype=np.uint32).reshape(256, 256)
     offs = np.array([13, 1029, 777, 40000]) // 256
     plan = row_copy_plan(offs, np.zeros(4, np.int64), 4, 256, 256, 4,

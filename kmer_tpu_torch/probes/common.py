@@ -31,8 +31,9 @@ class Record:
     as unsigned 32-bit integers.  ``ms`` / ``plain_ms``: one call of the
     wrapper / of the plain version (on the CPU the wrapper is the plain
     version).  ``ops`` is the script's operation count for a rate (stages
-    times words) and ``copies`` / ``nbytes`` the copies and bytes moved
-    (read + write) for a copy family.
+    times words), printed as G ``ops_label``/s, and ``copies`` /
+    ``nbytes`` the copies and bytes moved (read + write) for a copy
+    family.
 
     On a card, ``graph_ms`` is one kernel call's own time, from many calls
     captured in one CUDA graph (no host launch cost; where bytes set the
@@ -54,6 +55,7 @@ class Record:
     ms: float
     plain_ms: float
     ops: int | None = None
+    ops_label: str = "ops"
     copies: int | None = None
     nbytes: int | None = None
     graph_ms: float | None = None
@@ -74,7 +76,7 @@ class Record:
         for who, ms in ((who, self.ms), ("plain", self.plain_ms)):
             s = f"{who} {ms:.4f} ms"
             if self.ops:
-                s += f" -> {self.ops / ms / 1e6:.3f} G ops/s"
+                s += f" -> {self.ops / ms / 1e6:.3f} G {self.ops_label}/s"
             if self.copies:
                 s += (f" -> {self.copies / ms * 1e3:.1f} copies/s, "
                       f"{self.nbytes / ms / 1e6:.3f} GB/s")
@@ -193,9 +195,9 @@ def copy_library(src: torch.Tensor, plan: CopyPlan
     destination, it is the source's windows of ``seg`` words gathered at
     the source offsets: ``index_select`` of ``src.unfold``, with the
     offsets on the device."""
-    out_off = plan.out_off.cpu().numpy()
-    if np.any(np.diff(np.sort(out_off)) < plan.seg):
+    if plan.overlap:
         return "none: overlapping destinations, the last writer wins", None
+    out_off = plan.out_off.cpu().numpy()
     if not (plan.n_out == plan.copies * plan.seg
             and np.array_equal(out_off, np.arange(plan.copies) * plan.seg)):
         return "none: the destinations do not fill it in copy order", None

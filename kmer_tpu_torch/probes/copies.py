@@ -9,9 +9,10 @@ sizes (r3a: the extracted lane of 1M x 150 bp reads cut to a multiple of
 draws of the scripts' ranges.
 
 The TPU issued r3a's and r3b's loop copies from one grid step, one after
-another (1c start/wait; r3a and 1e double-buffered); here they run in
-``serial`` mode, one block walking the copies in order.  r3a's families
-are also timed in grid mode (one block per copy, all in flight), the
+another (1c start/wait; r3a and 1e double-buffered); those plans keep
+the name ``serial``, and r3a's families are also run as ``grid`` plans,
+the TPU's one grid step a copy.  On the card both run every copy at once
+(their destinations do not overlap, so that is the in-order result), the
 shape a partition sort's redistribution would take.  ``small`` divides
 the sources and the copy counts by 64 for a quick run on the CPU.
 """

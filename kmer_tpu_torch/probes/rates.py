@@ -4,8 +4,10 @@
 ``probe_pallas3.py`` (0) and (2), and ``probe_r2.py`` G, at the scripts'
 shapes and stage schedules.  Each prints the kernel's and the plain
 version's ms and G ops/s with the script's op count (words times stages
-times chained launches); the dispatch probes print ms only.  The kernel's
-result must equal the plain version's.
+times chained launches); the dispatch probes print ms only.  Where the
+kernel composes the stages into one pass (``add1``), that count is the
+script's stage count, not the operations issued, and the line says so.
+The kernel's result must equal the plain version's.
 
 ``jax.random`` inputs become seeded numpy draws.  ``jnp.roll`` and
 ``pltpu.roll`` agree (np.roll's direction), so the two lane-roll probes
@@ -24,11 +26,23 @@ from ..kernels.tile_stages import tile_stages, tile_stages_reference
 from .common import Record, max_abs_err, time_ms, words
 
 L = 128
-# int32 operations a stage costs a word: take2 compares (hi, lo) with its
-# partner's (two compares, an and, an or) and selects both lanes by one
-# predicate; a roll is addressing, not arithmetic
-OP_COST = {"take2": 4, "min": 1, "min_add1": 2, "add1": 1, "copy": 0}
+# int32 operations a dependent stage costs a word: take2 compares (hi, lo)
+# with its partner's (two compares, an and, an or) and selects both lanes
+# by one predicate; a roll is addressing, not arithmetic
+STAGE_COST = {"take2": 4, "min": 1, "min_add1": 2}
 LOOP = "none: a loop of dependent stages is no one call"
+STAGE_OPS = "stage-ops (the script's count, not issued operations)"
+
+
+def issued_ops(op: str, words: int, stages: int) -> int:
+    """int32 operations the kernel must issue for ``stages`` stages of
+    ``op`` over ``words`` words: add1's stages compose into one add a word
+    and copy's into one roll, so bytes bound those two."""
+    if op == "add1":
+        return words
+    if op == "copy":
+        return 0
+    return words * stages * STAGE_COST[op]
 
 
 def _random_words(rng, shape):
@@ -63,9 +77,10 @@ def _stages(name, site, device, rows, op, axis, shifts, reps=1,
                   correct=err == 0,
                   max_abs_err=err, ms=time_ms(run, device, iters),
                   plain_ms=time_ms(plain, device, 1),
-                  ops=rows * L * stages if count_ops else None).own_times(
+                  ops=rows * L * stages if count_ops else None,
+                  ops_label=STAGE_OPS if op == "add1" else "ops").own_times(
         run, device, 2 * lanes * rows * L * 4 + 4 * len(shifts),
-        rows * L * stages * OP_COST[op], *library)
+        issued_ops(op, rows * L, stages), *library)
 
 
 def _gather(name, site, device, tiles, rows, axis, steps, seed=1):

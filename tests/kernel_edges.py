@@ -1,0 +1,103 @@
+"""Edge cases of the port's kernels, shared by the CPU tests (through the
+Pallas kernels and numpy models of the CUDA kernels' indices), the card
+tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py`` (which loads
+this file by path).  numpy only, no JAX.
+
+* the segment-count kernel: key runs at the edges of its tiles;
+* ``segment_copy``: plans whose destinations overlap;
+* ``tile_stages``: shift schedules and shapes at every path's edges.
+"""
+
+import numpy as np
+
+# the CUDA kernel's tile in keys, for the CPU tests; the card tests take
+# the built kernel's, segment_counts_tile()
+TILE = 4096
+# cases small enough for the Pallas kernel in interpret mode
+EDGES = ["tail_at_tile_end", "head_at_tile_start",
+         "three_tiles_ending_mid_tile", "halo_edge_31", "halo_edge_32",
+         "halo_edge_33", "sentinel_run_spanning_tiles", "n_T_minus_1", "n_T",
+         "n_T_plus_1"]
+# larger ones: runs past the staged halo (galloping searches), one run
+# over every tile, an odd n
+LARGE = ["long_runs", "one_run_over_every_tile", "odd_n"]
+
+
+def edge_runs(name: str, t: int) -> tuple[np.ndarray, int]:
+    """(run lengths, sentinel-run length) for tiles of ``t`` keys: run i
+    holds key i, and the sentinel run comes last."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "tail_at_tile_end":
+        return np.array([t - 10, 10, 50]), 0
+    if name == "head_at_tile_start":
+        return np.array([t, 20, 30]), 0
+    if name == "three_tiles_ending_mid_tile":
+        return np.array([t // 2, 2 * t + 7, 100]), 0
+    if name.startswith("halo_edge_"):  # a run from t - d across the edge
+        return np.array([t - int(name.rsplit("_", 1)[1]), 40, 5]), 0
+    if name == "sentinel_run_spanning_tiles":
+        return rng.integers(1, 9, 700), 2 * t + 100
+    if name == "long_runs":  # 1 to 30,000 keys, some runs long, most short
+        return np.where(rng.random(300) < 0.3, rng.integers(1, 30_000, 300),
+                        rng.integers(1, 40, 300)), 3 * t + 11
+    if name == "one_run_over_every_tile":
+        return np.array([20 * t + 3, 2]), 0
+    n = {"n_T_minus_1": t - 1, "n_T": t, "n_T_plus_1": t + 1,
+         "odd_n": 12345}[name]  # n keys drawn from 900 values
+    return np.bincount(rng.integers(0, 900, n), minlength=900), 0
+
+
+# --- segment_copy and tile_stages ----------------------------------------
+
+N_IN = 5000  # words of the source the overlap plans copy from
+
+# plans whose destinations overlap, so the last writer of a word decides
+OVERLAP_PLANS = ["random", "one_offset", "chain", "seg1", "g1"]
+
+
+def overlap_plan(name: str, seed: int = 0):
+    """(in_off, out_off, seg, n_in, n_out) of the named plan: ``random``
+    draws 300 destinations of 40 words from [0, n_out - seg] of 2,000;
+    ``one_offset`` puts 64 copies at one offset; ``chain`` offsets 200
+    copies of 50 words by one word each; ``seg1`` draws 500 one-word
+    copies into 50 words; ``g1`` is one copy."""
+    rng = np.random.default_rng(seed)
+    g, seg, n_out, out_off = {
+        "random": (300, 40, 2000, None),
+        "one_offset": (64, 33, 100, np.full(64, 17)),
+        "chain": (200, 50, 249, np.arange(200)),
+        "seg1": (500, 1, 50, None),
+        "g1": (1, 77, 100, np.array([5])),
+    }[name]
+    if out_off is None:
+        out_off = rng.integers(0, n_out - seg + 1, g)
+    in_off = rng.integers(0, N_IN - seg + 1, g)
+    in_off[-1] = N_IN - seg  # a copy that ends at the source's last word
+    return in_off, out_off, seg, N_IN, n_out
+
+
+# tile_stages schedules: empty, zero, negative and |shift| >= len, and
+# shifts near +-2^31 whose plain int32 sum overflows
+SCHEDULES = {
+    "empty": [],
+    "zero": [0],
+    "zeros": [0, 0, 0],
+    "mixed": [-1, 129, 7, -200],
+    "near_2_31": [2**31 - 1, 2**31 - 1, -2**31, 5, -2**31 + 3],
+}
+
+# (n_rows, lanes, axis, tile_rows): axis 1 at lanes 1 to 4,096, axis 0 at
+# tiles of 1 to 4,096 rows (128 lanes: the warp-register path; others
+# and tiles above 1,024 rows: the shared-memory paths)
+STAGE_SHAPES = [
+    (8, 1, 1, None), (8, 31, 1, None), (8, 33, 1, None), (8, 100, 1, None),
+    (8, 128, 1, None), (3, 4096, 1, None),
+    (4, 128, 0, 1), (6, 33, 0, 3), (16, 128, 0, 8), (1024, 16, 0, 512),
+    (1024, 8, 0, 1024), (8192, 3, 0, 4096),
+]
+
+
+def stage_shape_id(shape) -> str:
+    n_rows, lanes, axis, tile_rows = shape
+    return f"{n_rows}x{lanes}_axis{axis}" + (f"_tile{tile_rows}"
+                                               if tile_rows else "")

@@ -24,7 +24,9 @@ from kmer_tpu_torch.kernels.tile_gather import (
 from kmer_tpu_torch.kernels.tile_stages import (
     tile_stages, tile_stages_reference)
 from kmer_tpu_torch.packed import SIGN_FLIP
-from segment_edges import EDGES, LARGE, edge_runs
+from kernel_edges import (
+    EDGES, LARGE, OVERLAP_PLANS, SCHEDULES, STAGE_SHAPES, edge_runs,
+    overlap_plan, stage_shape_id)
 
 L = 128
 
@@ -159,8 +161,7 @@ def test_row_sort_kernel_matches_plain_on_cuda(width):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("serial", [False, True])
-def test_segment_copy_kernel_matches_plain_on_cuda(serial):
+def test_segment_copy_kernel_matches_plain_on_cuda():
     dev = _cuda()
     src = _t(_u32(5000, 6)).to(dev)
     rng = np.random.default_rng(7)
@@ -168,12 +169,81 @@ def test_segment_copy_kernel_matches_plain_on_cuda(serial):
         in_off = rng.integers(0, 5000 - seg + 1, g)
         in_off[-1] = 5000 - seg
         plan = copy_plan(in_off, rng.permutation(g) * seg, seg, 5000,
-                         g * seg, serial=serial, device=dev)
+                         g * seg, device=dev)
         assert torch.equal(segment_copy(src, plan),
                            segment_copy_reference(src, plan))
     plan = copy_plan([1, 2, 3], [0, 0, 0], 7, 5000, 7, device=dev)
-    assert plan.serial
+    assert plan.overlap
     assert torch.equal(segment_copy(src, plan), src[3:10])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OVERLAP_PLANS)
+def test_segment_copy_overlap_plans_on_cuda(name):
+    """Overlapping destinations: the card resolves each word's last
+    writer, the same one on every run."""
+    dev = _cuda()
+    in_off, out_off, seg, n_in, n_out = overlap_plan(name)
+    src = _t(_u32(n_in, 8)).to(dev)
+    plan = copy_plan(in_off, out_off, seg, n_in, n_out, device=dev)
+    before = segment_copy.launches
+    got = segment_copy(src, plan)
+    assert segment_copy.launches == before + 1
+    assert torch.equal(got, segment_copy_reference(src, plan))
+    assert torch.equal(segment_copy(src, plan), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [6, 600])
+@pytest.mark.parametrize("seg", [1, 3, 5, 1024, 1027])
+@pytest.mark.parametrize("src_mod, dst_mod", [(0, 0), (1, 0), (0, 3),
+                                              (2, 1), (3, 3)])
+def test_segment_copy_alignments_on_cuda(src_mod, dst_mod, seg, g):
+    """The 16-byte body's head, realignment and tail, on source and
+    destination views 0 to 3 words past 16 bytes, with a few copies (128
+    threads a copy) and with enough to fill the card (64)."""
+    dev = _cuda()
+    n = 8192
+    buf = _t(_u32(n + 4, 9)).to(dev)
+    src = buf[src_mod: src_mod + n]
+    rng = np.random.default_rng(seg)
+    in_off = rng.integers(0, n - seg + 1, g)
+    in_off[0], in_off[-1] = 0, n - seg
+    plan = copy_plan(in_off, rng.permutation(g) * seg, seg, n, g * seg,
+                     device=dev)
+    out = torch.zeros(g * seg + 4, dtype=torch.int32, device=dev)
+    view = out[dst_mod: dst_mod + g * seg]
+    assert src.data_ptr() % 16 == 4 * src_mod
+    assert torch.equal(segment_copy(src, plan, view),
+                       segment_copy_reference(src, plan))
+    assert int(out[:dst_mod].abs().sum()) == 0  # nothing before the view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("op", ["take2", "min", "min_add1", "add1", "copy"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=stage_shape_id)
+def test_tile_stages_edge_shapes_on_cuda(shape, op, aligned):
+    """Every path of the stage kernel (one pass, the 128-lane shuffle
+    rows, warp lines, block lines) on each schedule of kernel_edges, on
+    16-byte-aligned tensors and on views 4 bytes past."""
+    dev = _cuda()
+    n_rows, lanes, axis, tile_rows = shape
+    n = n_rows * lanes
+    lead = 0 if aligned else 1
+    x = _t(_u32(n + 1, 10)).to(dev)[lead: lead + n].view(n_rows, lanes)
+    lo = (_t(_u32(n + 1, 11)).to(dev)[lead: lead + n].view(n_rows, lanes)
+          if op == "take2" else None)
+    for name, shifts in SCHEDULES.items():
+        sched = torch.tensor(shifts, dtype=torch.int32, device=dev)
+        before = tile_stages.launches
+        got = tile_stages(x, sched, op, axis, lo=lo, tile_rows=tile_rows)
+        assert tile_stages.launches == before + 1
+        ref = tile_stages_reference(x, sched, op, axis, lo=lo,
+                                    tile_rows=tile_rows)
+        if lo is None:
+            got, ref = (got,), (ref,)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), name
 
 
 def _fold_inputs(seed, n, k, pool):

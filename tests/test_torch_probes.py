@@ -399,7 +399,7 @@ def test_dma_prefetch_last_writer_matches_pallas():
         out_shape=jax.ShapeDtypeStruct((ch // 256, 256), jnp.uint32))(
             jnp.asarray(offs), jnp.asarray(src)))
     plan = row_copy_plan(offs // 256, np.zeros(4), 4, 256, 256, 4)
-    assert plan.serial  # the overlap makes the plan keep the order
+    assert plan.overlap  # the last writer decides, as the TPU's order did
     got = segment_copy_reference(_t(src), plan)
     np.testing.assert_array_equal(_np(got).reshape(4, 256), want)
     np.testing.assert_array_equal(
@@ -432,7 +432,7 @@ def test_dma_smem_offsets_match_pallas():
                                memory_space=pltpu.VMEM))(
             jnp.asarray(offs), jnp.asarray(src)))
     plan = row_copy_plan(offs, 8 * np.arange(4), 8, 128, 128, 32)
-    assert not plan.serial
+    assert not plan.serial and not plan.overlap
     got = segment_copy_reference(_t(src), plan)
     np.testing.assert_array_equal(_np(got).reshape(32, 128), want)
     np.testing.assert_array_equal(
@@ -616,6 +616,35 @@ def test_rate_probes_have_the_scripts_op_counts():
     assert recs["dispatch_overhead (8, 128)"].ops is None
 
 
+def test_composed_families_are_bounded_by_bytes(monkeypatch):
+    """add1's stages compose into one add a word and copy's into one roll,
+    so at the amplified add's shape its bytes set the bound, where the
+    script's stage count (words x stages) would have set an operation
+    bound; the dependent stages keep their per-stage cost."""
+    from kmer_tpu_torch.probes import common
+
+    monkeypatch.setattr(common, "hbm_bytes_per_s", lambda device: 3.35e12)
+    monkeypatch.setattr(common, "int32_ops_per_s",
+                        lambda device: 132 * 64 * 1.98e9)
+    dev = torch.device("cuda", 0)
+    words, stages = 128 * 512 * L, 128
+    assert rates.issued_ops("add1", words, stages) == words
+    assert rates.issued_ops("copy", words, stages) == 0
+    assert rates.issued_ops("min_add1", words, stages) == 2 * words * stages
+    nbytes = 2 * 4 * words
+    assert common.bound_ms(nbytes, rates.issued_ops("add1", words, stages),
+                           dev)[1] == "bytes"
+    assert common.bound_ms(nbytes, words * stages, dev)[1] == "operations"
+
+
+def test_composed_add_rate_line_names_the_stage_count():
+    """The add's G ops/s is the script's stage count, not issued work."""
+    recs = {r.name: r for r in rates.run(torch.device("cpu"), small=True)}
+    assert ("G stage-ops (the script's count, not issued operations)/s"
+            in recs["plain_add(amplified)"].line())
+    assert " G ops/s" in recs["vpu_cmpex"].line()
+
+
 def test_run_all_echoes_one_line_per_probe():
     lines = []
     recs = run_all("cpu", only="capability", echo=lines.append)
@@ -682,9 +711,13 @@ def test_plan_rejects_out_of_range_copies():
 
 
 def test_plan_keeps_order_only_where_destinations_overlap():
-    assert copy_plan([0, 5], [0, 9], 10, 100, 19).serial
-    assert not copy_plan([0, 5], [0, 10], 10, 100, 20).serial
-    assert copy_plan([0, 5], [0, 10], 10, 100, 20, serial=True).serial
+    """``overlap``, which the kernel reads, is the plan's own finding;
+    ``serial`` stays what the caller asked for."""
+    plan = copy_plan([0, 5], [0, 9], 10, 100, 19)
+    assert plan.overlap and not plan.serial
+    assert not copy_plan([0, 5], [0, 10], 10, 100, 20).overlap
+    plan = copy_plan([0, 5], [0, 10], 10, 100, 20, serial=True)
+    assert plan.serial and not plan.overlap
 
 
 @pytest.mark.parametrize("call, err", [

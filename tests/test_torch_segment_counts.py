@@ -22,7 +22,7 @@ from kmer_tpu_torch.kernels.segment_counts import (
     segment_counts_reference,
 )
 from kmer_tpu_torch.packed import as_int64, key_from_hi_lo
-from segment_edges import EDGES, LARGE, TILE, edge_runs
+from kernel_edges import EDGES, LARGE, TILE, edge_runs
 
 T = TILE
 SENTINEL = (0xFFFFFFFF, 0xFFFF0000)
