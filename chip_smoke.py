@@ -6,20 +6,26 @@
 Phases, each of which must pass or the script exits nonzero:
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles the kernels (nvcc) and the host parser (cc) from the
-   sources in this checkout, and prints ptxas's registers and spills
-   (none allowed in the two stage and copy kernels);
+2. build: compiles the six kernel libraries (nvcc) and the host parser
+   (cc) from the sources in this checkout, one compiler each at once, and
+   prints ptxas's registers and spills (none allowed in the stage, copy,
+   gather and wire-key kernels);
 3. kernel vs plain: the segment-count kernel must equal its plain PyTorch
    version exactly on the cases of tests/test_pallas.py, at the edges of
    its tiles (on aligned tensors and on views 8 bytes past 16), and at
    the main path's and a fold batch's shapes (146.8M and 73.4M sorted
    keys), and its closed form above 2^30 slots; times the kernel and
    ``torch.unique_consecutive`` in turns at both shapes, beside the
-   bound (12 bytes a slot at the card's published HBM rate);
+   bound (12 bytes a slot at the card's published HBM rate); the
+   wire-key kernel must equal its plain version in every slot at the
+   edges of tests/kernel_edges.py (widths 16 to 161, k 1 to 32,
+   canonical or not, with and without the length column, into views 8
+   bytes past 16) and at the main path's batch (524,288 rows of width
+   160, k = 21, canonical), where it is timed against its byte bound;
 4. main path: writes a FASTQ of 1,000,000 x 150 bp reads from a seed and
    counts it (k = 21, canonical) through ``count_file`` on the card; the
-   kernel's launch count must rise, and the table must equal an
-   independent numpy oracle exactly;
+   wire-key and segment-count kernels' launch counts must rise, and the
+   table must equal an independent numpy oracle exactly;
 5. coverage reads and variable-length reads at k = 32 (with all-t reads)
    and k = 31, each exact against the oracle;
 6. probes: ``python -m kmer_tpu_torch.probes``'s path (the ported Pallas
@@ -28,18 +34,23 @@ Phases, each of which must pass or the script exits nonzero:
    its plain version and the scripts' numpy oracles, each count must
    rise; each probe prints its kernel's own time (many calls in one CUDA
    graph, each with its inputs out of the L2 where bytes set the bound),
-   its bound and its library call's time; then kernel vs plain
-   at edge shapes (tests/kernel_edges.py: stage loops at 1 to 4,096
-   lanes and tile rows, empty and overflowing schedules; overlapping
-   copies, one copy of one word, a copy that ends at the source's last
-   word), and the overlap path's worst case timed: 32,768 copies of
-   1,024 words at random destinations, and all at one offset;
+   its bound and its library call's time, and the gathers' times are
+   printed again beside ``torch.gather`` / ``torch.take``; then kernel vs
+   plain at edge shapes (tests/kernel_edges.py: gathers at 1 to 4,096
+   lanes and tile rows, 1, 3 and 128 steps, tables of 1 and 4,096 words;
+   stage loops at 1 to 4,096 lanes and tile rows, empty and overflowing
+   schedules; overlapping copies, one copy of one word, a copy that ends
+   at the source's last word), and the overlap path's worst case timed:
+   32,768 copies of 1,024 words at random destinations, and all at one
+   offset;
 7. bench: ``run_bench`` (fused and coverage), ``run_bench_stream`` and
    ``run_chr_bench`` on the card, their distinct counts held against
    phases 4 and 5 (and chr against a second route and, at 16M bases, a
-   numpy oracle); the segment-count kernel's count must rise;
-8. the streaming fold of ``count_file``, each case with the kernel's count
-   set to 0 before it and required to rise: (a) a sequencing run, 10M x
+   numpy oracle); the wire-key and segment-count kernels' counts must
+   rise;
+8. the streaming fold of ``count_file``, each case with the wire-key and
+   segment-count kernels' counts set to 0 before it and required to
+   rise: (a) a sequencing run, 10M x
    150 bp reads at 30x over a 50 Mbp genome (a 3.1 GB FASTQ), routed
    automatically to the fold, growing from 2^24 slots, exact against an
    oracle built from the genome; (b) phase 4's file through the fold
@@ -214,6 +225,28 @@ def time_cuda(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def count_path_kernels() -> dict:
+    """The wrappers of the count path's kernels, by name."""
+    from kmer_tpu_torch.kernels.segment_counts import segment_counts
+    from kmer_tpu_torch.kernels.wire_keys import wire_keys
+
+    return {"wire_keys": wire_keys, "segment_counts": segment_counts}
+
+
+def zero_launches() -> None:
+    for fn in count_path_kernels().values():
+        fn.launches = 0
+
+
+def read_launches(what: str) -> dict:
+    """The count path's kernels' launches since ``zero_launches``; each
+    must have launched."""
+    launches = {name: fn.launches for name, fn in count_path_kernels().items()}
+    for name, n in launches.items():
+        check(n > 0, f"{what} launched the {name} kernel")
+    return launches
+
+
 # the kernel's timed shapes: (slots, sentinel slots) of the single-shot
 # count (2 batches x 524,288 rows x 140 slots) and of one fold batch
 TIMED_SHAPES = {"main path": (2 * 524288 * 140, 2 * 524288 * 16),
@@ -348,12 +381,108 @@ def kernel_cases(dev) -> dict:
     return timing
 
 
+# the main path's batch: 524,288 rows of width 160 (10 base words and the
+# length column), k = 21, canonical: 140 window slots a row
+WIRE_ROWS, WIRE_WIDTH = 524288, 160
+# int32 operations a canonical window costs, about: the three-word read's
+# indices and bounds, the 64-bit shifts, ors and mask as int32 pairs
+# (~14), the reverse complement (not, brev, the pair swap, the shift:
+# ~14), the unsigned minimum (~4), the valid compare (~4)
+WIRE_OPS = 36
+
+
+def wire_key_cases(dev) -> dict:
+    """The wire-key kernel == its plain version in every slot at the edges
+    of tests/kernel_edges.py and at the main path's batch shape, timed
+    there against its bound; returns the kernels-line fields."""
+    import torch
+
+    from kmer_tpu_torch.kernels.wire_keys import wire_keys, wire_keys_reference
+    from kmer_tpu_torch.native import pack2bit_rows
+    from kmer_tpu_torch.probes.common import bound_ms
+
+    edges = load_by_path(os.path.join(ROOT, "tests", "kernel_edges.py"))
+
+    def wire_of(words, lengths):
+        if lengths is not None:
+            words = np.concatenate([words, lengths[:, None]], axis=1)
+        words = np.ascontiguousarray(words, np.uint32).view(np.int32)
+        return torch.from_numpy(words).to(dev)
+
+    def halves_err(a, b):
+        """max |difference| of the keys' unsigned 32-bit halves"""
+        if a.numel() == 0:
+            return 0
+        return max(int(((a >> s & 0xFFFFFFFF) - (b >> s & 0xFFFFFFFF))
+                       .abs().max()) for s in (32, 0))
+
+    def compare(wire, width, k, canonical, lengths, what, view_lead=None):
+        m = width - k + 1
+        out = None
+        if view_lead is not None:  # a view 8 * lead bytes past 16
+            flat = torch.empty(wire.shape[0] * m + 1, dtype=torch.int64,
+                               device=dev)
+            out = flat[view_lead: view_lead + wire.shape[0] * m].view(-1, m)
+        got, valid = wire_keys(wire, width, k, canonical, lengths=lengths,
+                               keys_out=out)
+        want, want_valid = wire_keys_reference(wire, width, k, canonical,
+                                               lengths=lengths)
+        torch.cuda.synchronize()
+        err = halves_err(got, want)
+        check(torch.equal(got, want) and (valid is None) == (not lengths)
+              and (not lengths or torch.equal(valid, want_valid)),
+              f"wire_keys == plain on {what} (max |diff| of a half {err})")
+        return err
+
+    errs, n_cases = [], 0
+    for width in edges.WIRE_WIDTHS:
+        for k in (k for k in edges.WIRE_KS if k <= width):
+            codes, lengths = edges.wire_case(width, k, rows=300)
+            words = pack2bit_rows(codes)
+            for canonical in (False, True):
+                for lens in (lengths, None):
+                    for lead in (None, 1):
+                        errs.append(compare(
+                            wire_of(words, lens), width, k, canonical,
+                            lens is not None, f"width {width} k {k}", lead))
+                        n_cases += 1
+    log(f"wire_keys == plain at the edge shapes ({n_cases} cases: widths "
+        f"{edges.WIRE_WIDTHS} x k {edges.WIRE_KS} x canonical x length "
+        "column x aligned / 8 bytes past 16)")
+
+    rng = np.random.default_rng(SEED + 3)
+    nw = WIRE_WIDTH // 16
+    words = rng.integers(0, 1 << 32, (WIRE_ROWS, nw), dtype=np.uint64)
+    lengths = rng.integers(0, WIRE_WIDTH + 1, WIRE_ROWS).astype(np.uint32)
+    lengths[::2] = READ_LEN  # the main path's reads
+    wire = wire_of(words.astype(np.uint32), lengths)
+    del words
+    slots = WIRE_ROWS * (WIRE_WIDTH - K + 1)
+    what = f"the main path's batch ({WIRE_ROWS} x width {WIRE_WIDTH})"
+    errs.append(compare(wire, WIRE_WIDTH, K, True, True, what))
+    errs.append(compare(wire, WIRE_WIDTH, K, True, True, what + ", a view",
+                        view_lead=1))
+    turns = [time_cuda(lambda: wire_keys(wire, WIRE_WIDTH, K, True), 20)
+             for _ in range(2)]
+    plain_ms = time_cuda(
+        lambda: wire_keys_reference(wire, WIRE_WIDTH, K, True), 3)
+    # the wire read once, 8 bytes of key and 1 of valid written a slot
+    bound, by = bound_ms(wire.numel() * 4 + 9 * slots, WIRE_OPS * slots, dev)
+    ms = sum(turns) / 2
+    log(f"wire_keys at {what}, k = {K}, canonical: {slots} slots, exact; "
+        f"kernel {turns[0]:.4f} / {turns[1]:.4f} ms (20 launches each), "
+        f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({by}), kernel at "
+        f"{100 * bound / ms:.2f}% of it")
+    return {"slots": slots, "max_abs_err": float(max(errs)), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "pct_of_bound": 100 * bound / ms}
+
+
 def main_path(dev, tmp: str):
-    """Counts the 1M x 150 bp FASTQ on the card; returns (kernel
+    """Counts the 1M x 150 bp FASTQ on the card; returns (the kernels'
     launches, the FASTQ's path, its oracle-checked host table)."""
     import torch
 
-    from kmer_tpu_torch.kernels.segment_counts import segment_counts
     from kmer_tpu_torch.ops.extract import simulate_reads
     from kmer_tpu_torch.pipeline import count_file
 
@@ -366,15 +495,14 @@ def main_path(dev, tmp: str):
 
     windows = MAIN_READS * (READ_LEN - K + 1)
     torch.cuda.reset_peak_memory_stats(dev)
-    segment_counts.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     table = count_file(path, "fastq", K, canonical=True, device=dev)
     torch.cuda.synchronize(dev)
     t_count = time.perf_counter() - t0
-    launches = segment_counts.launches
+    launches = read_launches("the main path")
     host = table.trim()
     wall = time.perf_counter() - t0
-    check(launches > 0, "the main path launched the segment-count kernel")
     log(f"main path: count_file {t_count:.3f} s, with trim to host "
         f"{wall:.3f} s = {windows / wall:.1f} k-mers/s; kernel launches "
         f"{launches}; slots {table.capacity}; peak device memory "
@@ -469,6 +597,12 @@ def probes(dev) -> list[dict]:
     bad = [r.name for r in records if not r.correct]
     check(not bad, f"every probe equals its plain version and oracle "
           f"(not: {bad})")
+    for r in records:
+        if r.kernel == "tile_gather":
+            lib = (r.library if r.library_ms is None
+                   else f"{r.library} {r.library_ms:.4f} ms")
+            log(f"tile_gather {r.name}: {r.graph_ms:.4f} ms (bound "
+                f"{r.bound_ms:.6f} ms, {r.bound_by}) beside {lib}")
     entries = []
     for name, (probe, replaces) in PROBE_KERNELS.items():
         check(launches[name] > 0, f"the probes' path launched {name}")
@@ -585,17 +719,23 @@ def probe_edges(dev) -> dict:
         check(all(torch.equal(x, y) for x, y in pairs),
               f"kernel == plain at the edge: {what}")
 
-    x8 = u32((8, 128))
-    for axis, bound in ((1, 128), (0, 8)):
-        idx = torch.from_numpy(rng.integers(0, bound, (8, 128)).astype(
-            np.int32)).to(dev)
-        same(tile_gather(x8, idx, axis, steps=3, add=1),
-             tile_gather_reference(x8, idx, axis, steps=3, add=1),
-             f"tile_gather R=8 axis {axis}")
-    one = torch.zeros((8, 128), dtype=torch.int32, device=dev)
-    same(tile_gather(x8[:1, :1].contiguous(), one, None),
-         tile_gather_reference(x8[:1, :1].contiguous(), one, None),
-         "tile_gather, a one-word table")
+    for shape in edges.GATHER_SHAPES:
+        x, idx = (torch.from_numpy(a.view(np.int32)).to(dev)
+                  for a in edges.gather_case(shape, SEED))
+        for steps in edges.GATHER_STEPS:
+            kw = dict(tile_rows=shape[3], steps=steps, add=0xFFFFFFF0)
+            same(tile_gather(x, idx, shape[2], **kw),
+                 tile_gather_reference(x, idx, shape[2], **kw),
+                 f"tile_gather {shape} steps {steps}")
+    for n_table in edges.GATHER_TABLES:
+        tab = u32((n_table,))
+        for n_idx, lead in ((1, 0), (7, 1), (8192, 0), (8192, 1)):
+            buf = torch.from_numpy(rng.integers(0, n_table, n_idx + 1).astype(
+                np.int32)).to(dev)
+            idx = buf[lead: lead + n_idx]
+            same(tile_gather(tab, idx, None),
+                 tile_gather_reference(tab, idx, None),
+                 f"tile_gather, a {n_table}-word table, {n_idx} indices")
     shapes = [(8, 128, axis, None) for axis in (1, 0)] + edges.STAGE_SHAPES
     for n_rows, lanes, axis, tile_rows in shapes:
         x, lo2 = u32((n_rows, lanes)), u32((n_rows, lanes))
@@ -630,19 +770,21 @@ def probe_edges(dev) -> dict:
         same(segment_copy(small, plan), segment_copy_reference(small, plan),
              f"segment_copy overlapping plan {name}")
     torch.cuda.synchronize()
-    log(f"probe kernels == plain at the edge shapes ({len(shapes)} stage "
-        f"shapes x {len(edges.SCHEDULES)} schedules x 5 ops; "
-        f"{len(edges.OVERLAP_PLANS)} overlapping copy plans)")
+    log(f"probe kernels == plain at the edge shapes "
+        f"({len(edges.GATHER_SHAPES)} gather shapes x "
+        f"{len(edges.GATHER_STEPS)} step counts, {len(edges.GATHER_TABLES)} "
+        f"tables; {len(shapes)} stage shapes x {len(edges.SCHEDULES)} "
+        f"schedules x 5 ops; {len(edges.OVERLAP_PLANS)} overlapping copy "
+        "plans)")
     return overlap_worst_cases(dev, rng)
 
 
 def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
     """The bench's modes on the card, held against phases 4 and 5; returns
-    the segment-count kernel's launches in them."""
+    the count path's kernels' launches in them."""
     import torch
 
     from kmer_tpu_torch import bench
-    from kmer_tpu_torch.kernels.segment_counts import segment_counts
     from kmer_tpu_torch.ops.count import count_windows
     from kmer_tpu_torch.ops.extract import canonicalize, extract_windows
 
@@ -653,7 +795,7 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
                 f"GB/s, {ph['pct_sol']}% of the published peak")
         return result["detail"]["unique_kmers"]
 
-    segment_counts.launches = 0
+    zero_launches()
     common = dict(read_len=READ_LEN, k=K, canonical=True, seed=SEED,
                   device=dev)
     got = show(bench.run_bench(n_reads=MAIN_READS, **common))
@@ -686,9 +828,8 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
     want = np.unique(oracle_keys(codes[None, :], chr_k, canonical=True)).size
     check(small == want, f"chr bench at 2^24 bases: distinct {small} == "
           f"{want} (numpy oracle)")
-    launches = segment_counts.launches
-    check(launches > 0, "the bench launched the segment-count kernel")
-    log(f"bench: exact on every mode; segment-count launches {launches}")
+    launches = read_launches("the bench")
+    log(f"bench: exact on every mode; kernel launches {launches}")
     return launches
 
 
@@ -759,24 +900,22 @@ def check_wide(table, keys: np.ndarray, counts: np.ndarray, k: int,
 
 def fold_run(dev, what: str, windows: int, path: str, **kw):
     """``count_file`` through the fold with the phases timed and the
-    kernel's count set to 0 before; returns (table, stats, launches)."""
+    kernels' counts set to 0 before; returns (table, stats, launches)."""
     import torch
 
-    from kmer_tpu_torch.kernels.segment_counts import segment_counts
     from kmer_tpu_torch.pipeline import count_file
     from kmer_tpu_torch.utils.logging import StatsCounters
     from kmer_tpu_torch.utils.profiling import Profile
 
     stats, profile = StatsCounters(), Profile()
     torch.cuda.reset_peak_memory_stats(dev)
-    segment_counts.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     table = count_file(path, "fastq", K, canonical=True, stats=stats,
                        profile=profile, device=dev, **kw)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = segment_counts.launches
-    check(launches > 0, f"{what}: the fold launched the segment-count kernel")
+    launches = read_launches(f"{what}: the fold")
     per = {name: 1e3 * sec / max(stats.batches, 1)
            for name, sec in profile.phases.items() if name in PER_BATCH}
     once = {name: sec for name, sec in profile.phases.items()
@@ -795,7 +934,7 @@ def fold_run(dev, what: str, windows: int, path: str, **kw):
 
 def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
                cov_table) -> dict:
-    """Phase 8; returns the kernel's launches by case."""
+    """Phase 8; returns the count path's kernels' launches by case."""
     from kmer_tpu_torch.ops import wide
     from kmer_tpu_torch.pipeline import (
         PipelineCheckpoint, count_batches_pipelined, file_batch_feed)
@@ -861,7 +1000,7 @@ def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
     table, stats, n = fold_run(
         dev, "8c resumed", windows, cov_fastq, batch=4096, width=width,
         max_capacity=BUDGET, spill_dir=resumed, ckpt_path=ck)
-    launches["8c"] += n
+    launches["8c"] = {name: c + n[name] for name, c in launches["8c"].items()}
     check(stats.batches == len(batches) - done, "8c: the resume skipped "
           "the checkpointed batches")
     check_wide(table, want_keys, want_counts, K, "8c, resumed")
@@ -880,7 +1019,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from kmer_tpu_torch.kernels import (
-        row_sort, segment_copy, segment_counts, tile_gather, tile_stages)
+        row_sort, segment_copy, segment_counts, tile_gather, tile_stages,
+        wire_keys)
     from kmer_tpu_torch.kernels.build import native_library
 
     dev = torch.device("cuda", 0)
@@ -888,21 +1028,22 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t_start = t0 = time.perf_counter()
-    builds = [m.build for m in (segment_counts, tile_gather, tile_stages,
-                                row_sort, segment_copy)] + [native_library]
+    libraries = (wire_keys, segment_counts, tile_gather, tile_stages,
+                 row_sort, segment_copy)
+    builds = [m.build for m in libraries] + [native_library]
     with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each
         for future in [pool.submit(b) for b in builds]:
             future.result()
-    log(f"build: 5 kernel libraries and the host parser in "
+    log(f"build: {len(libraries)} kernel libraries and the host parser in "
         f"{time.perf_counter() - t0:.2f} s")
-    for m in (segment_counts, tile_gather, tile_stages, row_sort,
-              segment_copy):
+    for m in libraries:
         stem = m.__name__.rsplit(".", 1)[-1]
         log(f"ptxas, {stem}.cu: {ptxas_report(stem)}")
-    for stem in ("tile_stages", "segment_copy"):
+    for stem in ("tile_stages", "segment_copy", "tile_gather", "wire_keys"):
         check_no_spills(stem)
 
     timing = kernel_cases(dev)
+    wire_timing = wire_key_cases(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches, main_fastq, main_table = main_path(dev, tmp)
         cov_fastq, cov_table = edge_cases(dev, tmp)
@@ -919,17 +1060,29 @@ def main() -> int:
     log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
+    def by_path(name):
+        return {"single_shot (phase 4)": launches[name],
+                "bench (phase 7)": bench_launches[name],
+                **{f"fold ({c})": n[name] for c, n in fold_launches.items()}}
+
     main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{
+        "name": "wire_keys",
+        "route": "cuda",
+        "source": "kmer_tpu_torch/csrc/wire_keys.cu",
+        "replaces": "no pallas_call: XLA fused it on the TPU "
+                    "(kmer_tpu/native.py:188, kmer_tpu/ops/extract.py:63, "
+                    "133, kmer_tpu/pipeline.py:79-85)",
+        "launches": launches["wire_keys"],
+        "launches_by_path": by_path("wire_keys"),
+        **wire_timing,
+    }, {
         "name": "segment_counts",
         "route": "cuda",
         "source": "kmer_tpu_torch/csrc/segment_counts.cu",
         "replaces": "kmer_tpu/pallas/segment_counts.py:58",
-        "launches": launches,
-        "launches_by_path": {"single_shot (phase 4)": launches,
-                             "bench (phase 7)": bench_launches,
-                             **{f"fold ({c})": n
-                                for c, n in fold_launches.items()}},
+        "launches": launches["segment_counts"],
+        "launches_by_path": by_path("segment_counts"),
         **main_shape,
         "at_fold_batch": timing["fold batch"],
     }, *entries]}))

@@ -7,11 +7,12 @@ BASELINE.md) and the same ``detail`` keys; ``detail.device`` is the
 card's name.
 
 * ``run_bench`` (fused; coverage with ``coverage_genome``): packed reads
-  -> unpack -> extract -> canonicalize -> ``count_windows`` (one
-  ``torch.sort`` of the sign-flipped int64 key + the segment-count
-  kernel).  The headline times it with the words already on the device;
-  the host-wire pass starts from the numpy words inside the timed
-  region.  Detail carries the extract / sort / segment_counts phases.
+  -> keys (unpack, extract and canonicalize in one kernel,
+  ``kernels/wire_keys``) -> ``count_windows`` (one ``torch.sort`` of the
+  sign-flipped int64 key + the segment-count kernel).  The headline
+  times it with the words already on the device; the host-wire pass
+  starts from the numpy words inside the timed region.  Detail carries
+  the extract / sort / segment_counts phases.
 * ``run_bench_stream``: phase-major windows straight from the packed
   words of reads laid back to back, invalid slots folded into the
   sentinel.
@@ -19,7 +20,7 @@ card's name.
 
 Every pass is timed warm and ends in a read of ``n_unique`` to the host,
 which waits for the device.  Each function takes an explicit ``device``:
-on ``cuda`` the count launches the kernel; on ``cpu`` it runs the plain
+on ``cuda`` the kernels launch; on ``cpu`` it runs the plain
 versions, and then no number in the result is a device number.
 """
 
@@ -31,12 +32,12 @@ import numpy as np
 import torch
 
 from .kernels.segment_counts import segment_counts
-from .native import device_unpack_rows, pack2bit_rows
+from .kernels.wire_keys import wire_keys
+from .native import pack2bit_rows
 from .ops.count import count_windows
 from .ops.extract import (
     canonicalize,
     extract_from_words,
-    extract_windows_batch,
     phase_major_valid,
     simulate_coverage_reads,
     simulate_reads,
@@ -100,8 +101,8 @@ def run_bench(
     coverage_genome: int | None = None,
     device: torch.device | str = "cuda",
 ) -> dict:
-    """Headline: unpack -> extract -> canonicalize -> count, words on the
-    device.  Reads are full length, so every window is valid: no mask, no
+    """Headline: wire -> keys (one kernel) -> count, words on the device.
+    Reads are full length, so every window is valid: no mask, no
     sentinel, exactly ``n_reads * (read_len - k + 1)`` keys are sorted.
 
     ``coverage_genome``: sample the reads from one random genome of that
@@ -116,16 +117,10 @@ def run_bench(
     else:
         reads = simulate_reads(n_reads, read_len, seed=seed)
     words_host = pack2bit_rows(reads)
-    lengths = torch.full((n_reads,), read_len, dtype=torch.int64,
-                         device=device)
 
-    def extract_all(wire):
-        codes = device_unpack_rows(wire.to(torch.int64) & 0xFFFFFFFF,
-                                   read_len)
-        keys, _ = extract_windows_batch(codes, lengths, k)
-        if canonical:
-            keys = canonicalize(keys, k)
-        return keys.reshape(-1)
+    def extract_all(wire):  # full-length reads: no length column, no mask
+        return wire_keys(wire, read_len, k, canonical,
+                         lengths=False)[0].reshape(-1)
 
     def count_all(wire):
         return count_windows(extract_all(wire), None, k)

@@ -15,14 +15,30 @@
 // The payload is 32 bits moved as bits, so int32, uint32 and float32 take
 // the same path (`add` is an integer add on the word).  An index out of
 // range stops the kernel with a trap, as torch.gather's device assert
-// does; the kernel never reads outside its group.
+// does; the kernel never reads outside a word's line (or the table).
 //
-// What bounds it: shared-memory traffic.  A gather along lanes mixes only
-// inside a row and one along rows only inside a column of the tile, so a
-// block owns a group that closes under the gather (whole rows, or a strip
-// of whole columns of one tile), loads it and its indices into shared
-// memory once, runs every step there and writes the group back once.
-// Device memory is touched 12 bytes a word per call, whatever `steps`.
+// What bounds it: bytes (each word and index read once, each word written
+// once), and at the probes' small shapes the latency of one launch.
+// * One step, and the table form (every probe but the amplified loops):
+//   a gather straight from device memory, as torch.gather does: a thread
+//   takes four consecutive words (one 16-byte index load and one 16-byte
+//   store where aligned) and reads each source through the read-only
+//   cache; 128-thread blocks spread the probes' 8,192 words over 16 SMs
+//   and larger shapes over the card.  No shared memory, no barrier.
+// * More steps compose.  `add` is the same for every word, so after s
+//   steps h[p] = h0[idx^s(p)] + s * add (mod 2^32), where idx^s is the
+//   s-fold composition of the index map inside the word's line.  A block
+//   holds a group of whole lines (rows on axis 1; a strip of columns of
+//   one tile on axis 0) with each word's source in registers, and builds
+//   idx^s by repeated squaring: bit_length(s) - 1 squarings and
+//   popcount(s) - 1 products, each one gather of indices through a
+//   shared-memory slice (two slices alternate: one barrier a gather),
+//   then one gather of the words.  128 steps cost 8 gathers, not 128: a
+//   step-by-step gather through shared memory is held to about a quarter
+//   of the INT32 throughput by the bank conflicts of random indices
+//   (about 3.5 wavefronts a 32-word load) plus the store that publishes
+//   each step.  Groups are sized to fill the card, with row pieces of at
+//   least 8 words (one 32-byte sector) on axis 0 where the tile allows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,9 +47,81 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kGroup = 4096;  // words of one block's resident group
-constexpr int kPer = kGroup / kThreads;
+constexpr int kGroup = 4096;          // longest line; most words a block holds
+constexpr int kMaxThreads = 256;      // threads of a composing block
+constexpr int kDirectThreads = 128;   // threads of a one-step block
+constexpr int kTargetGroup = 1024;    // words a composing block aims at
+
+enum Form { kAxis0 = 0, kAxis1 = 1, kTable = 2 };
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// a / b with 32-bit arithmetic where a fits
+__device__ __forceinline__ long long div_ll(long long a, int b) {
+  return a < (1LL << 32) ? (long long)((unsigned)a / (unsigned)b) : a / b;
+}
+
+// --- one step and the table: straight from device memory ----------------
+
+// word e's source: the table at i, its row at i (axis 1), or row i of its
+// tile, same column (axis 0); c is e's column and row its row
+__device__ __forceinline__ long long source(int form, long long e,
+                                            long long row, int c, int i,
+                                            int lanes, int rows) {
+  if (form == kTable) return i;
+  if (form == kAxis1) return e - c + i;
+  return (row - row % rows + i) * lanes + c;
+}
+
+// out[e] = x[source of e] + add; with kVec four consecutive words of one
+// row a thread (n, and lanes for the tile forms, multiples of 4; idx and
+// out 16-byte aligned)
+template <bool kVec>
+__global__ void __launch_bounds__(kDirectThreads)
+gather_direct(const uint32_t* __restrict__ x, const int32_t* __restrict__ idx,
+              uint32_t* __restrict__ out, long long n, int lanes, int rows,
+              int form, int bound, uint32_t add) {
+  constexpr int kW = kVec ? 4 : 1;
+  const long long e0 =
+      ((long long)blockIdx.x * kDirectThreads + threadIdx.x) * kW;
+  if (e0 >= n) return;
+  int iv[kW];
+  if constexpr (kVec) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(idx + e0));
+    iv[0] = v.x, iv[1] = v.y, iv[2] = v.z, iv[3] = v.w;
+  } else {
+    iv[0] = __ldg(idx + e0);
+  }
+  const long long row = form == kTable ? 0 : div_ll(e0, lanes);
+  const int c0 = (int)(e0 - row * lanes);
+  uint32_t ov[kW];
+#pragma unroll
+  for (int h = 0; h < kW; ++h) {
+    if ((unsigned)iv[h] >= (unsigned)bound) __trap();
+    ov[h] = __ldg(x + source(form, e0 + h, row, c0 + h, iv[h], lanes, rows)) +
+            add;
+  }
+  if constexpr (kVec) {
+    *reinterpret_cast<uint4*>(out + e0) = make_uint4(ov[0], ov[1], ov[2],
+                                                     ov[3]);
+  } else {
+    out[e0] = ov[0];
+  }
+}
+
+// --- more steps: composed on chip ---------------------------------------
 
 struct Group {
   long long row0;  // first row of the group
@@ -61,59 +149,108 @@ __device__ Group group_of(long long n_rows, int rows, int lanes, int axis,
   return g;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_tiles(const uint32_t* __restrict__ x, const int32_t* __restrict__ idx,
-             uint32_t* __restrict__ out, long long n_rows, int rows,
-             int lanes, int axis, int gr, int gc, int strips, int steps,
-             uint32_t add) {
-  __shared__ uint32_t val[kGroup];
-  __shared__ int32_t src[kGroup];  // each word's source inside the group
+// Group word e = r * nc + c sits in register e / blockDim.x of thread
+// e % blockDim.x; kP registers a thread hold a group of up to
+// kP * blockDim.x words.  Two shared slices of that size alternate.
+template <int kP>
+__global__ void __launch_bounds__(kMaxThreads)
+gather_composed(const uint32_t* __restrict__ x,
+                const int32_t* __restrict__ idx, uint32_t* __restrict__ out,
+                long long n_rows, int rows, int lanes, int axis, int gr,
+                int gc, int strips, int steps, uint32_t add) {
+  extern __shared__ uint32_t slices[];
+  const int nt = blockDim.x;
+  const int cap = kP * nt;
   const Group g = group_of(n_rows, rows, lanes, axis, gr, gc, strips);
   const int n = g.nr * g.nc;
   const int bound = axis == 1 ? g.nc : g.nr;
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / g.nc, c = e % g.nc;
-    const long long at = (g.row0 + r) * lanes + g.col0 + c;
-    const int i = idx[at];
-    if ((unsigned)i >= (unsigned)bound) __trap();
-    val[e] = x[at];
-    src[e] = axis == 1 ? r * g.nc + i : i * g.nc + c;
+  uint32_t pw[kP], res[kP], val[kP];  // idx^(2^b), idx^(steps so far), h0
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const int e = threadIdx.x + j * nt;
+    pw[j] = res[j] = val[j] = 0u;  // past n: any index inside the slice
+    if (e < n) {
+      const int r = e / g.nc, c = e - r * g.nc;
+      const long long at = (g.row0 + r) * lanes + g.col0 + c;
+      const int i = __ldg(idx + at);
+      if ((unsigned)i >= (unsigned)bound) __trap();
+      val[j] = __ldg(x + at);
+      pw[j] = axis == 1 ? r * g.nc + i : i * g.nc + c;
+    }
   }
-  __syncthreads();
-  uint32_t v[kPer];
-  for (int s = 0; s < steps; ++s) {
+  // res = idx^steps, from the lowest bit of steps up
+  int s = steps, cur = 0;
+  bool have = false;
+  for (;;) {
+    const bool bit = s & 1;
+    s >>= 1;
+    const bool product = bit && have;
+    if (bit && !have) {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int e = threadIdx.x + j * kThreads;
-      if (e < n) v[j] = val[src[e]] + add;
+      for (int j = 0; j < kP; ++j) res[j] = pw[j];
+      have = true;
     }
-    __syncthreads();  // every read of this step before any write
+    if (!product && s == 0) break;
+    uint32_t* b = slices + cur * cap;
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int e = threadIdx.x + j * kThreads;
-      if (e < n) val[e] = v[j];
-    }
+    for (int j = 0; j < kP; ++j) b[threadIdx.x + j * nt] = pw[j];
     __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      if (product) res[j] = b[res[j]];
+      if (s) pw[j] = b[pw[j]];
+    }
+    cur ^= 1;  // the other slice was last read before this barrier
+    if (s == 0) break;
   }
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / g.nc, c = e % g.nc;
-    out[(g.row0 + r) * lanes + g.col0 + c] = val[e];
+  uint32_t* b = slices + cur * cap;
+#pragma unroll
+  for (int j = 0; j < kP; ++j) b[threadIdx.x + j * nt] = val[j];
+  __syncthreads();
+  const uint32_t total = add * (uint32_t)steps;
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const int e = threadIdx.x + j * nt;
+    if (e < n) {
+      const int r = e / g.nc, c = e - r * g.nc;
+      out[(g.row0 + r) * lanes + g.col0 + c] = b[res[j]] + total;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_table(const uint32_t* __restrict__ table, int n_table,
-             const int32_t* __restrict__ idx, long long n,
-             uint32_t* __restrict__ out) {
-  __shared__ uint32_t t[kGroup];
-  for (int e = threadIdx.x; e < n_table; e += kThreads) t[e] = table[e];
-  __syncthreads();
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    const int j = idx[i];
-    if ((unsigned)j >= (unsigned)n_table) __trap();
-    out[i] = t[j];
+template <int kP>
+cudaError_t launch_composed(const void* x, const void* idx, void* out,
+                            long long n_rows, int rows, int lanes, int axis,
+                            int gr, int gc, int strips, long long blocks,
+                            int threads, int steps, uint32_t add,
+                            cudaStream_t stream) {
+  gather_composed<kP><<<(unsigned)blocks, threads,
+                        2 * kP * threads * sizeof(uint32_t), stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int32_t*>(idx),
+      static_cast<uint32_t*>(out), n_rows, rows, lanes, axis, gr, gc, strips,
+      steps, add);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_direct(const void* x, const void* idx, void* out,
+                          long long n, int lanes, int rows, int form,
+                          int bound, uint32_t add, cudaStream_t stream) {
+  const bool vec = n % 4 == 0 && (form == kTable || lanes % 4 == 0) &&
+                   aligned16(idx) && aligned16(out);
+  const long long threads = vec ? n / 4 : n;
+  const unsigned blocks =
+      (unsigned)((threads + kDirectThreads - 1) / kDirectThreads);
+  const auto* xs = static_cast<const uint32_t*>(x);
+  const auto* is = static_cast<const int32_t*>(idx);
+  auto* os = static_cast<uint32_t*>(out);
+  if (vec) {
+    gather_direct<true><<<blocks, kDirectThreads, 0, stream>>>(
+        xs, is, os, n, lanes, rows, form, bound, add);
+  } else {
+    gather_direct<false><<<blocks, kDirectThreads, 0, stream>>>(
+        xs, is, os, n, lanes, rows, form, bound, add);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -124,8 +261,6 @@ const char* tile_gather_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int tile_gather_group() { return kGroup; }
-
 // x, idx, out: [n_rows, lanes] 32-bit words on the device, n_rows a
 // multiple of `rows` for axis 0; the index range is [0, lanes) for axis 1
 // and [0, rows) for axis 0.  Needs lanes <= kGroup (axis 1) or
@@ -133,29 +268,57 @@ int tile_gather_group() { return kGroup; }
 int tile_gather_launch(const void* x, const void* idx, void* out,
                        long long n_rows, int rows, int lanes, int axis,
                        int steps, unsigned int add, void* stream) {
-  if (n_rows <= 0 || lanes <= 0 || steps < 1) return (int)cudaErrorInvalidValue;
-  int gr = 1, gc = lanes, strips = 1;
-  long long blocks;
-  if (axis == 1) {
-    if (lanes > kGroup) return (int)cudaErrorInvalidValue;
-    gr = kGroup / lanes;
-    blocks = (n_rows + gr - 1) / gr;
-  } else if (axis == 0) {
-    if (rows <= 0 || rows > kGroup || n_rows % rows) {
-      return (int)cudaErrorInvalidValue;
-    }
-    gc = std::min(lanes, kGroup / rows);
-    strips = (lanes + gc - 1) / gc;
-    blocks = (n_rows / rows) * strips;
-  } else {
+  if (n_rows <= 0 || lanes <= 0 || steps < 1 ||
+      (axis == 1 && lanes > kGroup) ||
+      (axis == 0 && (rows <= 0 || rows > kGroup || n_rows % rows)) ||
+      (axis != 0 && axis != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  gather_tiles<<<(unsigned)blocks, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const int32_t*>(idx),
-      static_cast<uint32_t*>(out), n_rows, rows, lanes, axis, gr, gc, strips,
-      steps, (uint32_t)add);
-  return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (steps == 1) {
+    return (int)launch_direct(x, idx, out, n_rows * lanes, lanes, rows,
+                              axis == 1 ? kAxis1 : kAxis0,
+                              axis == 1 ? lanes : rows, add, st);
+  }
+  // groups: about kTargetGroup words (axis 0: row pieces of 8 or more
+  // words where the tile allows), halved while the card gets fewer than
+  // two blocks an SM
+  int gr = 1, gc = lanes, strips = 1;
+  long long blocks;
+  const long long want = 2LL * sm_count();
+  if (axis == 1) {
+    gr = std::max(1, kTargetGroup / lanes);
+    while (gr > 1 && (n_rows + gr - 1) / gr < want) gr /= 2;
+    blocks = (n_rows + gr - 1) / gr;
+  } else {
+    gc = std::min(lanes, std::max(1, std::min(kGroup / rows,
+                                              std::max(8, kTargetGroup / rows))));
+    while (gc > 1 && (n_rows / rows) * ((lanes + gc - 1) / gc) < want) gc /= 2;
+    strips = (lanes + gc - 1) / gc;
+    blocks = (n_rows / rows) * strips;
+  }
+  const int words = axis == 1 ? gr * lanes : rows * gc;
+  const int threads = std::min(kMaxThreads, (words + 31) / 32 * 32);
+  const int per = (words + threads - 1) / threads;
+  const uint32_t a = (uint32_t)add;
+  cudaError_t err;
+  if (per <= 1) {
+    err = launch_composed<1>(x, idx, out, n_rows, rows, lanes, axis, gr, gc,
+                             strips, blocks, threads, steps, a, st);
+  } else if (per <= 2) {
+    err = launch_composed<2>(x, idx, out, n_rows, rows, lanes, axis, gr, gc,
+                             strips, blocks, threads, steps, a, st);
+  } else if (per <= 4) {
+    err = launch_composed<4>(x, idx, out, n_rows, rows, lanes, axis, gr, gc,
+                             strips, blocks, threads, steps, a, st);
+  } else if (per <= 8) {
+    err = launch_composed<8>(x, idx, out, n_rows, rows, lanes, axis, gr, gc,
+                             strips, blocks, threads, steps, a, st);
+  } else {
+    err = launch_composed<16>(x, idx, out, n_rows, rows, lanes, axis, gr, gc,
+                              strips, blocks, threads, steps, a, st);
+  }
+  return (int)err;
 }
 
 // table: n_table <= kGroup words; idx, out: n words.
@@ -164,13 +327,8 @@ int tile_gather_table_launch(const void* table, int n_table, const void* idx,
   if (n_table <= 0 || n_table > kGroup || n <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long per_block = (long long)kThreads * 8;
-  const long long blocks = std::min((n + per_block - 1) / per_block, 4096LL);
-  gather_table<<<(unsigned)blocks, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(table), n_table,
-      static_cast<const int32_t*>(idx), n, static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
+  return (int)launch_direct(table, idx, out, n, 1, 1, kTable, n_table, 0u,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -18,9 +18,12 @@ Replaces the Pallas probe gathers: ``scripts/probe_pallas.py``
   table of at most ``GROUP`` words and ``idx`` of any shape.
 
 With ``steps`` and ``add`` the tile form repeats ``h = take(h, idx) +
-add`` (an integer add on the 32-bit word, mod 2^32).  The wrapper takes
-the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+add`` (an integer add on the 32-bit word, mod 2^32).  On the card one
+step and the table form gather straight from device memory, and more
+steps compose on chip: ``h0[idx^steps] + steps * add``, ``idx^steps`` by
+repeated squaring (``csrc/tile_gather.cu``).  The wrapper takes the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from .build import KernelLibrary
 from .words import check_words, from_u32, stream_of, to_u32
 
-GROUP = 4096  # words a block keeps resident (kGroup in the CUDA source)
+GROUP = 4096  # longest line, largest table (kGroup in the CUDA source)
 
 _LIB = KernelLibrary("tile_gather", {
     "tile_gather_launch": [

@@ -4,7 +4,8 @@ The counterpart of ``kmer_tpu/pipeline.py``.  A producer thread parses
 the file (native C) and packs fixed-width 2-bit rows, one ``[B, W/16 + 1]``
 uint32 wire array per batch with the row lengths in the last column,
 while the device works on the batch before.  On the device each batch is
-unpacked, its k-windows extracted (and canonicalized), and then:
+turned into its k-window keys (canonicalized when asked) and valid mask by
+one kernel, ``kernels/wire_keys``, and then:
 
 * **single-shot** (files whose windows fit one device buffer, up to ~150M
   window slots): every batch's keys go into one flat int64 buffer, and
@@ -38,9 +39,9 @@ import torch
 
 from .codec import MAX_K
 from .errors import InvalidKmerLengthError
-from .native import device_unpack_rows, rows_packed
+from .kernels.wire_keys import wire_keys
+from .native import rows_packed
 from .ops.count import CountTable, count_windows
-from .ops.extract import canonicalize, extract_windows_batch
 from .ops.wide import (
     SpillRuns, WideCounts, fit_groups, live_rows, merge_groups, merge_runs,
     pad_wide, table_groups)
@@ -250,17 +251,6 @@ def _upload(wire: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(wire.view(np.int32)).to(device)
 
 
-def _windows(wire: torch.Tensor, k: int, canonical: bool, width: int
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """An uploaded wire array -> (keys int64 [B, W-k+1], valid)."""
-    wire = wire.to(torch.int64) & 0xFFFFFFFF
-    codes = device_unpack_rows(wire[:, :-1], width)
-    keys, valid = extract_windows_batch(codes, wire[:, -1], k)
-    if canonical:
-        keys = canonicalize(keys, k)
-    return keys, valid
-
-
 def _record(stats: StatsCounters | None, wire: np.ndarray, k: int) -> None:
     if stats is not None:
         ls = wire[:, -1].astype(np.int64)
@@ -276,8 +266,9 @@ class _SingleShotOverflow(Exception):
 def _count_single_shot(feed, k: int, canonical: bool, batch: int,
                        width: int, device: torch.device,
                        stats: StatsCounters | None = None) -> CountTable:
-    """Upload packed batches as they arrive (overlapping the parse), place
-    each batch's windows into one flat key buffer, then count once."""
+    """Upload packed batches as they arrive (overlapping the parse), write
+    each batch's windows straight into one flat key buffer, then count
+    once."""
     spb = batch * (width - k + 1)
     ceiling = int(_SINGLE_SHOT_MAX * 1.3)  # routing estimate headroom
     wires = []
@@ -298,9 +289,10 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
     keys = torch.empty(len(wires) * spb, dtype=torch.int64, device=device)
     valid = torch.empty(len(wires) * spb, dtype=torch.bool, device=device)
     for i, wire in enumerate(wires):
-        wins, ok = _windows(wire, k, canonical, width)
-        keys[i * spb: (i + 1) * spb] = wins.reshape(-1)
-        valid[i * spb: (i + 1) * spb] = ok.reshape(-1)
+        at = slice(i * spb, (i + 1) * spb)
+        wire_keys(wire, width, k, canonical,
+                  keys_out=keys[at].view(batch, -1),
+                  valid_out=valid[at].view(batch, -1))
     del wires
     return count_windows(keys, valid, k)
 
@@ -411,8 +403,8 @@ class _PipelineRun:
         """Folds batch ``idx`` into the accumulator, exactly once."""
         k = self.k
         with self.phase("extract"):
-            keys, valid = _windows(_upload(wire, self.device), k,
-                                   self.canonical, self.width)
+            keys, valid = wire_keys(_upload(wire, self.device), self.width,
+                                    k, self.canonical)
         with self.phase("count"):
             table = count_windows(keys, valid, k)
         del keys, valid

@@ -5,8 +5,9 @@
 shapes and stage schedules.  Each prints the kernel's and the plain
 version's ms and G ops/s with the script's op count (words times stages
 times chained launches); the dispatch probes print ms only.  Where the
-kernel composes the stages into one pass (``add1``), that count is the
-script's stage count, not the operations issued, and the line says so.
+kernel composes the stages (``add1`` into one pass, the gathers by
+repeated squaring), that count is the script's stage count, not the
+operations issued, and the line says so.
 The kernel's result must equal the plain version's.
 
 ``jax.random`` inputs become seeded numpy draws.  ``jnp.roll`` and
@@ -37,11 +38,16 @@ STAGE_OPS = "stage-ops (the script's count, not issued operations)"
 def issued_ops(op: str, words: int, stages: int) -> int:
     """int32 operations the kernel must issue for ``stages`` stages of
     ``op`` over ``words`` words: add1's stages compose into one add a word
-    and copy's into one roll, so bytes bound those two."""
+    and copy's into one roll, so bytes bound those two; ``gather`` steps
+    compose into bit_length - 1 squarings and popcount products of the
+    index map (the last one gathers the words), one operation a word
+    each."""
     if op == "add1":
         return words
     if op == "copy":
         return 0
+    if op == "gather":
+        return words * (stages.bit_length() - 1 + bin(stages).count("1"))
     return words * stages * STAGE_COST[op]
 
 
@@ -98,14 +104,16 @@ def _gather(name, site, device, tiles, rows, axis, steps, seed=1):
     def run():
         return tile_gather(big, it, axis, tile_rows=rows, steps=steps, add=1)
 
-    # words and indices read, words written; one add a word a step
+    # words and indices read, words written; the rate counts the script's
+    # gather steps, the bound the composed gathers the kernel issues
+    n = tiles * rows * L
     return Record(
         name, "rates", "tile_gather", site, str(device), correct=err == 0,
         max_abs_err=err, ms=time_ms(run, device, 3),
         plain_ms=time_ms(lambda: tile_gather_reference(
             big, it, axis, tile_rows=rows, steps=steps, add=1), device, 1),
-        ops=tiles * rows * L * steps).own_times(
-        run, device, 3 * tiles * rows * L * 4, tiles * rows * L * steps,
+        ops=n * steps, ops_label=STAGE_OPS).own_times(
+        run, device, 3 * n * 4, issued_ops("gather", n, steps),
         "none: a loop of dependent gathers is no one call")
 
 

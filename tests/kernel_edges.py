@@ -5,7 +5,9 @@ this file by path).  numpy only, no JAX.
 
 * the segment-count kernel: key runs at the edges of its tiles;
 * ``segment_copy``: plans whose destinations overlap;
-* ``tile_stages``: shift schedules and shapes at every path's edges.
+* ``tile_stages``: shift schedules and shapes at every path's edges;
+* ``tile_gather``: shapes, step counts and tables at every path's edges;
+* ``wire_keys``: row widths and k, and rows at the edges of their length.
 """
 
 import numpy as np
@@ -101,3 +103,45 @@ def stage_shape_id(shape) -> str:
     n_rows, lanes, axis, tile_rows = shape
     return f"{n_rows}x{lanes}_axis{axis}" + (f"_tile{tile_rows}"
                                                if tile_rows else "")
+
+
+# tile_gather: (n_rows, lanes, axis, tile_rows), axis 1 at 1 to 4,096
+# lanes and axis 0 at tiles of 1 to 4,096 rows; each at every step count
+# (1: the direct gather; 3 and 128: composed by squaring, 3 with a product)
+GATHER_SHAPES = [
+    (8, 1, 1, None), (8, 31, 1, None), (8, 32, 1, None), (8, 33, 1, None),
+    (8, 128, 1, None), (3, 4096, 1, None),
+    (4, 128, 0, 1), (16, 128, 0, 8), (1024, 8, 0, 512), (8192, 3, 0, 4096),
+]
+GATHER_STEPS = [1, 3, 128]
+GATHER_TABLES = [1, 4096]  # words of a flat table
+
+
+def gather_case(shape, seed: int = 0):
+    """(words [n_rows, lanes] uint32, indices int32) of a gather case."""
+    n_rows, lanes, axis, tile_rows = shape
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, (n_rows, lanes), dtype=np.uint64).astype(
+        np.uint32)
+    bound = lanes if axis == 1 else (tile_rows or n_rows)
+    idx = rng.integers(0, bound, (n_rows, lanes)).astype(np.int32)
+    return x, idx
+
+
+# wire_keys: row widths (whole words, and not) and k
+WIRE_WIDTHS = [16, 48, 150, 161]
+WIRE_KS = [1, 15, 16, 17, 21, 31, 32]
+
+
+def wire_case(width: int, k: int, rows: int = 12, seed: int = 0):
+    """(codes [rows, width] uint8, lengths [rows] uint32): random bases
+    with t-leading rows (keys with bit 63 set) and one all-t row (the
+    all-ones 32-mer); lengths of 0, k - 1 (below k), width, and random."""
+    rng = np.random.default_rng(seed + 1000 * k + width)
+    codes = rng.integers(0, 4, (rows, width)).astype(np.uint8)
+    codes[::3, 0] = 3
+    codes[1, :] = 3
+    lengths = rng.integers(0, width + 1, rows).astype(np.uint32)
+    lengths[0], lengths[1], lengths[2] = 0, width, max(k - 1, 0)
+    lengths[3] = width
+    return codes, lengths

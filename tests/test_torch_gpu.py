@@ -23,10 +23,13 @@ from kmer_tpu_torch.kernels.tile_gather import (
     tile_gather, tile_gather_reference)
 from kmer_tpu_torch.kernels.tile_stages import (
     tile_stages, tile_stages_reference)
+from kmer_tpu_torch.kernels.wire_keys import wire_keys, wire_keys_reference
+from kmer_tpu_torch.native import pack2bit_rows
 from kmer_tpu_torch.packed import SIGN_FLIP
 from kernel_edges import (
-    EDGES, LARGE, OVERLAP_PLANS, SCHEDULES, STAGE_SHAPES, edge_runs,
-    overlap_plan, stage_shape_id)
+    EDGES, GATHER_SHAPES, GATHER_STEPS, GATHER_TABLES, LARGE, OVERLAP_PLANS,
+    SCHEDULES, STAGE_SHAPES, WIRE_KS, WIRE_WIDTHS, edge_runs, gather_case,
+    overlap_plan, stage_shape_id, wire_case)
 
 L = 128
 
@@ -138,6 +141,42 @@ def test_tile_gather_kernel_matches_plain_on_cuda(axis, rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("steps", GATHER_STEPS)
+@pytest.mark.parametrize("shape", GATHER_SHAPES, ids=stage_shape_id)
+def test_tile_gather_edge_shapes_on_cuda(shape, steps):
+    """One step (straight from memory) and composed steps, at lanes 1 to
+    4,096 and tiles of 1 to 4,096 rows; add wraps mod 2^32."""
+    dev = _cuda()
+    n_rows, lanes, axis, tile_rows = shape
+    x, idx = gather_case(shape, seed=steps)
+    x, idx = _t(x).to(dev), _t(idx).to(dev)
+    before = tile_gather.launches
+    got = tile_gather(x, idx, axis, tile_rows=tile_rows, steps=steps,
+                      add=0xFFFFFFF0)
+    assert tile_gather.launches == before + 1
+    assert torch.equal(got, tile_gather_reference(
+        x, idx, axis, tile_rows=tile_rows, steps=steps, add=0xFFFFFFF0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [0, 1])
+@pytest.mark.parametrize("n_idx", [1, 7, 8192])
+@pytest.mark.parametrize("n_table", GATHER_TABLES)
+def test_tile_gather_tables_on_cuda(n_table, n_idx, lead):
+    """Tables of 1 and 4,096 words; indices and output 16-byte aligned
+    (four words a thread where n allows) and 4 bytes past (one)."""
+    dev = _cuda()
+    rng = np.random.default_rng(n_table + n_idx)
+    tab = _t(_u32(n_table, n_idx)).to(dev)
+    buf = _t(rng.integers(0, n_table, n_idx + 1).astype(np.int32)).to(dev)
+    idx = buf[lead: lead + n_idx]
+    before = tile_gather.launches
+    got = tile_gather(tab, idx, None)
+    assert tile_gather.launches == before + 1
+    assert torch.equal(got, tile_gather_reference(tab, idx, None))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("op", ["take2", "min", "min_add1", "add1", "copy"])
 @pytest.mark.parametrize("axis", [1, 0])
 def test_tile_stages_kernel_matches_plain_on_cuda(op, axis):
@@ -246,6 +285,44 @@ def test_tile_stages_edge_shapes_on_cuda(shape, op, aligned):
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), name
 
 
+def _wire(codes, lengths=None):
+    words = pack2bit_rows(codes)
+    if lengths is not None:
+        words = np.concatenate([words, lengths[:, None]], axis=1)
+    return _t(words.astype(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("width, k", [(w, k) for w in WIRE_WIDTHS
+                                      for k in WIRE_KS if k <= w])
+def test_wire_keys_kernel_matches_plain_on_cuda(width, k, canonical):
+    """Every slot, valid or not, with the length column and without, and
+    into views of a flat buffer 16-byte aligned and 8 bytes past."""
+    dev = _cuda()
+    codes, lengths = wire_case(width, k, rows=300)
+    m = width - k + 1
+    for lens in (lengths, None):
+        wire = _wire(codes, lens).to(dev)
+        has = lens is not None
+        want, want_valid = wire_keys_reference(wire, width, k, canonical,
+                                               lengths=has)
+        before = wire_keys.launches
+        got, valid = wire_keys(wire, width, k, canonical, lengths=has)
+        assert wire_keys.launches == before + 1
+        assert torch.equal(got, want)
+        assert (valid is None) == (not has)
+        assert not has or torch.equal(valid, want_valid)
+        for lead in (0, 1):
+            keys = torch.full((300 * m + 2,), -7, dtype=torch.int64,
+                              device=dev)
+            view = keys[lead: lead + 300 * m].view(300, m)
+            assert view.data_ptr() % 16 == 8 * lead
+            wire_keys(wire, width, k, canonical, lengths=has, keys_out=view)
+            assert torch.equal(view, want)
+            assert int(keys[-1]) == -7 and (lead == 0 or int(keys[0]) == -7)
+
+
 def _fold_inputs(seed, n, k, pool):
     """Left-aligned k-mer keys drawn from ``pool`` values (a few all-t),
     and a validity mask."""
@@ -309,7 +386,8 @@ def test_wide_accumulator_on_cuda_equals_cpu(budget):
 @pytest.mark.gpu
 def test_pipelined_fold_on_cuda_equals_cpu(tmp_path):
     """count_batches_pipelined with growth and spills to a directory: the
-    card's table equals the CPU's, through the segment-count kernel."""
+    card's table equals the CPU's, through the wire_keys and
+    segment-count kernels."""
     from kmer_tpu_torch.pipeline import count_batches_pipelined
 
     dev = _cuda()
@@ -319,12 +397,13 @@ def test_pipelined_fold_on_cuda_equals_cpu(tmp_path):
                for _ in range(12)]
     results = {}
     for d in ("cpu", dev):
-        before = segment_counts.launches
+        before = segment_counts.launches, wire_keys.launches
         results[d] = count_batches_pipelined(
             iter(batches), 11, canonical=True, capacity=256,
             max_capacity=1 << 15, spill_dir=str(tmp_path / str(d)),
             device=d).trim()
-        launched = segment_counts.launches - before
-        assert launched == (12 if d == dev else 0)
+        launched = (segment_counts.launches - before[0],
+                    wire_keys.launches - before[1])
+        assert launched == ((12, 12) if d == dev else (0, 0))
     for got, want in zip(results[dev].to_numpy(), results["cpu"].to_numpy()):
         np.testing.assert_array_equal(got, want)

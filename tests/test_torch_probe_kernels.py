@@ -1,11 +1,13 @@
-"""numpy models of the index arithmetic of the probe kernels
-``csrc/segment_copy.cu`` and ``csrc/tile_stages.cu``, held against their
-plain PyTorch versions (which ``tests/test_torch_probes.py`` holds against
-the Pallas bodies).  A CUDA kernel cannot run here; these models repeat its
-indices step by step (ownership of overlapping copies, the 16-byte body's
-split and realignment, the composed shift, the warp layouts' partner
-reads), so a wrong index shows here before the card.  Every comparison is
-exact.
+"""numpy models of the index arithmetic of the kernels
+``csrc/segment_copy.cu``, ``csrc/tile_stages.cu``, ``csrc/tile_gather.cu``
+and ``csrc/wire_keys.cu``, held against their plain PyTorch versions (which
+``tests/test_torch_probes.py`` and ``tests/test_torch_wire_keys.py`` hold
+against the Pallas bodies and kmer_tpu).  A CUDA kernel cannot run here;
+these models repeat its indices step by step (ownership of overlapping
+copies, the 16-byte body's split and realignment, the composed shift and
+gathers, the warp layouts' partner reads, the wire's three-word windows
+and their 16-byte pairs), so a wrong index shows here before the card.
+Every comparison is exact.
 """
 
 import numpy as np
@@ -14,10 +16,14 @@ import torch
 
 from kmer_tpu_torch.kernels.segment_copy import (
     copy_plan, segment_copy, segment_copy_reference)
+from kmer_tpu_torch.kernels.tile_gather import tile_gather_reference
 from kmer_tpu_torch.kernels.tile_stages import (
     GROUP, tile_stages, tile_stages_reference)
+from kmer_tpu_torch.kernels.wire_keys import wire_keys_reference
 from kernel_edges import (
-    OVERLAP_PLANS, SCHEDULES, STAGE_SHAPES, overlap_plan, stage_shape_id)
+    GATHER_SHAPES, GATHER_TABLES, OVERLAP_PLANS, SCHEDULES, STAGE_SHAPES,
+    WIRE_KS, WIRE_WIDTHS, gather_case, overlap_plan, stage_shape_id,
+    wire_case)
 
 
 def _u32(shape, seed):
@@ -408,3 +414,326 @@ def test_line_source_map_on_tile_columns_is_np_roll(rows):
         np.testing.assert_array_equal(
             (from_reg * 32 + from_lane).reshape(-1),
             np.roll(pos, shift)[p.reshape(-1)])
+
+
+# --- tile_gather: one step from memory, more steps composed on chip ------
+
+
+def _pow2_at_least(n):
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def gather_geometry(n_rows, lanes, axis, rows, sms=132):
+    """tile_gather_launch's groups for more than one step: (gr, gc,
+    strips, blocks, threads, registers a thread)."""
+    want = 2 * sms
+    if axis == 1:
+        gr = max(1, 1024 // lanes)
+        while gr > 1 and -(-n_rows // gr) < want:
+            gr //= 2
+        gc, strips, blocks, words = lanes, 1, -(-n_rows // gr), gr * lanes
+    else:
+        gr = 1
+        gc = min(lanes, max(1, min(4096 // rows, max(8, 1024 // rows))))
+        while gc > 1 and (n_rows // rows) * -(-lanes // gc) < want:
+            gc //= 2
+        strips = -(-lanes // gc)
+        blocks, words = (n_rows // rows) * strips, rows * gc
+    threads = min(256, -(-words // 32) * 32)
+    per = _pow2_at_least(-(-words // threads))
+    return gr, gc, strips, blocks, threads, per
+
+
+def gather_group(blk, n_rows, rows, lanes, axis, gr, gc, strips):
+    """group_of: (row0, col0, nr, nc) of block ``blk``."""
+    if axis == 1:
+        row0 = blk * gr
+        return row0, 0, min(gr, n_rows - row0), lanes
+    tile, strip = divmod(blk, strips)
+    return tile * rows, strip * gc, rows, min(gc, lanes - strip * gc)
+
+
+def composed_model(x, idx, axis, rows, steps, add, sms=132):
+    """gather_composed: per group, each word's source inside the group in
+    registers (word e of the group at slice position e), idx^steps by
+    squarings and products through the published slice, then one gather
+    of the group's words; returns (out, gathers a word)."""
+    n_rows, lanes = x.shape
+    gr, gc, strips, blocks, threads, per = gather_geometry(
+        n_rows, lanes, axis, rows, sms)
+    assert threads % 32 == 0 and per <= 16 and threads * per <= 4096
+    xf, idf = x.reshape(-1), idx.reshape(-1)
+    out = np.zeros(x.size, np.uint64)
+    written = np.zeros(x.size, np.int64)
+    for blk in range(blocks):
+        row0, col0, nr, nc = gather_group(blk, n_rows, rows, lanes, axis, gr,
+                                          gc, strips)
+        e = np.arange(threads * per)
+        live = e < nr * nc
+        r, c = np.where(live, e // nc, 0), np.where(live, e % nc, 0)
+        at = (row0 + r) * lanes + col0 + c
+        i = np.where(live, idf[at], 0)
+        assert ((0 <= i) & (i < (nc if axis == 1 else nr)))[live].all()
+        pw = np.where(live, r * nc + i if axis == 1 else i * nc + c, 0)
+        res, s, have, gathers = np.zeros_like(pw), steps, False, 0
+        while True:
+            bit, s = s & 1, s >> 1
+            product = bit and have
+            if bit and not have:
+                res, have = pw.copy(), True
+            if not product and s == 0:
+                break
+            published = pw.copy()  # one barrier
+            if product:
+                res, gathers = published[res], gathers + 1
+            if s:
+                pw, gathers = published[pw], gathers + 1
+            if s == 0:
+                break
+        val = np.where(live, xf[at], 0).astype(np.uint64)
+        out[at[live]] = (val[res] + np.uint64(steps * add))[live] & 0xFFFFFFFF
+        written[at[live]] += 1
+    assert (written == 1).all()
+    return out.astype(np.uint32).reshape(x.shape), gathers + 1
+
+
+def direct_model(x, idx, axis, rows, add):
+    """gather_direct: four consecutive words a thread where n (and lanes,
+    for the tile forms) are multiples of 4, one otherwise; each word's
+    source from its row (axis 1), its tile's row i (axis 0) or the table
+    (axis None), computed from the thread's first word's row."""
+    xf, idf = x.reshape(-1), idx.reshape(-1)
+    n = idf.size
+    lanes = 1 if axis is None else x.shape[1]
+    w = 4 if n % 4 == 0 and (axis is None or lanes % 4 == 0) else 1
+    bound = x.size if axis is None else (lanes if axis == 1 else rows)
+    out = np.zeros(n, np.uint64)
+    for h in range(w):
+        e0 = np.arange(0, n, w)
+        e = e0 + h
+        row = np.zeros_like(e0) if axis is None else e0 // lanes
+        c = e - row * lanes
+        i = idf[e]
+        assert ((0 <= i) & (i < bound)).all()
+        if axis is None:
+            src = i
+        elif axis == 1:
+            src = e - c + i
+        else:
+            src = (row - row % rows + i) * lanes + c
+        out[e] = (xf[src].astype(np.uint64) + add) & 0xFFFFFFFF
+    return out.astype(np.uint32).reshape(idx.shape)
+
+
+def _gather_ref(x, idx, axis, rows, steps, add):
+    return _np(tile_gather_reference(_t(x), _t(idx), axis, tile_rows=rows,
+                                     steps=steps, add=add))
+
+
+@pytest.mark.parametrize("steps", [3, 128])
+@pytest.mark.parametrize("shape", GATHER_SHAPES, ids=stage_shape_id)
+def test_composed_gather_model_matches_reference(shape, steps):
+    """On a full card and on one SM (other group sizes), at the edges of
+    kernel_edges; add wraps mod 2^32."""
+    n_rows, lanes, axis, tile_rows = shape
+    rows = tile_rows or n_rows
+    x, idx = gather_case(shape, seed=steps)
+    add = 0xFFFFFFF0
+    want = _gather_ref(x, idx, axis, rows, steps, add)
+    for sms in (132, 1):
+        got, _ = composed_model(x, idx, axis, rows, steps, add, sms)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES, ids=stage_shape_id)
+def test_direct_gather_model_matches_reference(shape):
+    n_rows, lanes, axis, tile_rows = shape
+    rows = tile_rows or n_rows
+    x, idx = gather_case(shape, seed=1)
+    np.testing.assert_array_equal(direct_model(x, idx, axis, rows, 5),
+                                  _gather_ref(x, idx, axis, rows, 1, 5))
+
+
+@pytest.mark.parametrize("n_idx", [1, 7, 8192])
+@pytest.mark.parametrize("n_table", GATHER_TABLES)
+def test_table_gather_model_matches_reference(n_table, n_idx):
+    rng = np.random.default_rng(n_table + n_idx)
+    tab = rng.integers(0, 1 << 32, n_table, dtype=np.uint64).astype(np.uint32)
+    idx = rng.integers(0, n_table, n_idx).astype(np.int32)
+    np.testing.assert_array_equal(direct_model(tab, idx, None, 1, 0),
+                                  _gather_ref(tab, idx, None, 1, 1, 0))
+
+
+@pytest.mark.parametrize("steps", [1, 2, 3, 5, 7, 64, 127, 128, 129])
+def test_composed_gathers_are_the_issued_ops(steps):
+    """The kernel's gathers a word, bit_length - 1 squarings, popcount - 1
+    products and the gather of the words, are the rate probe's issued
+    operations (one a word a gather), so the bound counts what it runs."""
+    from kmer_tpu_torch.probes import rates
+
+    x, idx = gather_case((16, 128, 1, None), seed=steps)
+    _, gathers = composed_model(x, idx, 1, 16, steps, 1)
+    assert rates.issued_ops("gather", x.size, steps) == x.size * gathers
+    assert gathers <= 2 * steps.bit_length()
+
+
+def test_gather_groups_fill_the_card_at_the_probe_shapes():
+    """The amplified probes (128 tiles [512, 128]) get eight rows a group
+    on axis 1 and eight columns (32-byte row pieces) on axis 0; the
+    probes' [64, 128] tiles get one row, or one column, a group."""
+    tiles = 128 * 512
+    assert gather_geometry(tiles, 128, 1, 512)[:4] == (8, 128, 1, 8192)
+    assert gather_geometry(tiles, 128, 0, 512)[1:4] == (8, 16, 2048)
+    assert gather_geometry(64, 128, 1, 64)[0] == 1
+    assert gather_geometry(64, 128, 0, 64)[1:4] == (1, 128, 128)
+
+
+# --- wire_keys: the window arithmetic and the pair layout ----------------
+
+_LOW_BITS = np.uint64(0x5555555555555555)
+
+
+def brev64(x):
+    """__brevll on uint64 values."""
+    bits = np.unpackbits(np.ascontiguousarray(x, ">u8").view(np.uint8))
+    rev = np.packbits(bits.reshape(-1, 64)[:, ::-1], axis=1)
+    return rev.view(">u8").reshape(-1).astype(np.uint64)
+
+
+def window_key_model(staged, base, nw, i, k, canonical):
+    """window_key: words w, w + 1, w + 2 of the staged row at ``base``
+    (zero past its nw base words), shifted by 2 (i % 16), masked to 2k
+    bits; the reverse complement is ~key, brev, a swap of each pair's two
+    bits and << 64 - 2k; the canonical key is the unsigned minimum."""
+    w = i >> 4
+    sh = (2 * (i & 15)).astype(np.uint64)
+
+    def word(j):
+        return np.where(j < nw, staged[base + np.minimum(j, nw - 1)],
+                        0).astype(np.uint64)
+
+    w0, w1, w2 = word(w), word(w + 1), word(w + 2)
+    mask = np.uint64(((1 << 64) - 1) ^ ((1 << (64 - 2 * k)) - 1))
+    key = ((((w0 << np.uint64(32)) | w1) << sh)
+           | ((w2 << sh) >> np.uint64(32))) & mask
+    if not canonical:
+        return key
+    rc = brev64(~key)
+    one = np.uint64(1)
+    rc = ((rc >> one) & _LOW_BITS) | ((rc & _LOW_BITS) << one)
+    if k < 32:
+        rc = rc << np.uint64(64 - 2 * k)
+    return np.minimum(key, rc)
+
+
+def wire_rows_per_block(m, ncols):
+    """wire_keys_launch: rows a block stages (at least one, ~4,096 slots,
+    at most 8,192 words)."""
+    return max(1, min(4096 // m, 8192 // ncols))
+
+
+def wire_keys_model(wire, width, k, canonical, lengths, lead):
+    """wire_keys_kernel over every block: the staged rows, slot pairs
+    aligned to 16 bytes of an output ``lead`` slots past such a boundary,
+    each pair's (row, window) from one division and a step; returns (keys
+    uint64, valid or None), asserting every slot is written once."""
+    n_rows, ncols = wire.shape
+    nw, m = -(-width // 16), width - k + 1
+    rows = wire_rows_per_block(m, ncols)
+    flat = wire.reshape(-1)
+    keys = np.zeros(n_rows * m, np.uint64)
+    valid = np.zeros(n_rows * m, bool)
+    writes = np.zeros(n_rows * m, np.int64)
+    for row0 in range(0, n_rows, rows):
+        nr = min(rows, n_rows - row0)
+        staged = flat[row0 * ncols: (row0 + nr) * ncols]
+        e0, n = row0 * m, nr * m
+        q0 = (e0 + lead) >> 1
+        g = 2 * (q0 + np.arange(((e0 + n - 1 + lead) >> 1) - q0 + 1)) - lead
+        ll = g - e0
+        assert ll.min() >= -1
+        r = np.where(ll < 0, 0, ll // m)
+        i = np.where(ll < 0, 0, ll - r * m)
+        slots = [(ll, r, i)]
+        i2 = np.where(ll >= 0, i + 1, i)
+        wrap = (ll >= 0) & (i2 == m)
+        slots.append((ll + 1, r + wrap, np.where(wrap, 0, i2)))
+        first, second = ll >= 0, ll + 1 < n
+        assert ((g[first & second] + lead) % 2 == 0).all()  # 16-byte stores
+        for li, rr, ii in slots:
+            ok = (li >= 0) & (li < n)
+            rr, ii = rr[ok], ii[ok]
+            np.testing.assert_array_equal(rr * m + ii, li[ok])
+            at = e0 + li[ok]
+            keys[at] = window_key_model(staged, rr * ncols, nw, ii, k,
+                                        canonical)
+            if lengths:
+                valid[at] = ii <= staged[rr * ncols + nw].astype(
+                    np.int64) - k
+            writes[at] += 1
+    assert (writes == 1).all()
+    return keys.reshape(n_rows, m), valid.reshape(n_rows, m) if lengths \
+        else None
+
+
+def _wire_words(codes, lengths):
+    from kmer_tpu_torch.native import pack2bit_rows
+
+    words = pack2bit_rows(codes)
+    if lengths is not None:
+        words = np.concatenate([words, lengths[:, None]], axis=1)
+    return np.ascontiguousarray(words, np.uint32)
+
+
+WIRE_CASES = [(w, k) for w in WIRE_WIDTHS for k in WIRE_KS if k <= w]
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("width, k", WIRE_CASES)
+def test_wire_keys_model_matches_reference(width, k, canonical):
+    """Every slot, valid or not, on outputs 16-byte aligned and 8 bytes
+    past, with and without the length column."""
+    codes, lengths = wire_case(width, k, rows=40)
+    for lens in (lengths, None):
+        wire = _wire_words(codes, lens)
+        want, want_valid = wire_keys_reference(
+            _t(wire), width, k, canonical, lengths=lens is not None)
+        for lead in (0, 1):
+            got, valid = wire_keys_model(wire, width, k, canonical,
+                                         lens is not None, lead)
+            np.testing.assert_array_equal(got.view(np.int64), want.numpy())
+            if lens is not None:
+                np.testing.assert_array_equal(valid, want_valid.numpy())
+
+
+@pytest.mark.parametrize("width, k", [(160, 21), (16, 16), (65520, 31),
+                                      (32, 1)])
+def test_wire_keys_blocks_stay_in_shared_memory(width, k):
+    """A block stages at most 8,192 words (32 KB) and at least one row;
+    the main path's batch (width 160, k = 21: 140 slots a row) gets 29 rows
+    a block."""
+    ncols = -(-width // 16) + 1
+    rows = wire_rows_per_block(width - k + 1, ncols)
+    assert rows >= 1 and rows * ncols <= 8192
+    if (width, k) == (160, 21):
+        assert rows == 29
+
+
+def test_reverse_complement_by_brev_is_revcomp_packed():
+    """~key, brev, the pair swap and the shift give revcomp_packed."""
+    from kmer_tpu_torch.ops.extract import revcomp_packed
+
+    rng = np.random.default_rng(17)
+    for k in WIRE_KS:
+        key = rng.integers(0, 1 << 64, 500, dtype=np.uint64)
+        key &= np.uint64(((1 << 64) - 1) ^ ((1 << (64 - 2 * k)) - 1))
+        rc = brev64(~key)
+        rc = ((rc >> np.uint64(1)) & _LOW_BITS) | (
+            (rc & _LOW_BITS) << np.uint64(1))
+        if k < 32:
+            rc = rc << np.uint64(64 - 2 * k)
+        want = revcomp_packed(torch.from_numpy(key.view(np.int64).copy()), k)
+        np.testing.assert_array_equal(rc.view(np.int64), want.numpy())
