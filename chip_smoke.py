@@ -58,7 +58,21 @@ Phases, each of which must pass or the script exits nonzero:
    file under a 2^19-slot budget with spills to a directory, and a
    checkpointed half run resumed to the end, both equal to phase 5's
    table.  Prints per-batch count, compaction and merge times and the
-   peak device memory.
+   peak device memory;
+9. the SQL surface on the card (``device="cuda"``): (a) ``run_parity``,
+   all 11 checks, with the segment-count kernel's count set to 0 before
+   and required to rise; (b) ``run_scale_parity`` at the reference's
+   100,000 rows against its pure-Python oracle; (c) the CLI's ``count``
+   on a 100,000-row CSV made by its ``datagen``: the kmer column against
+   a ``collections.Counter``, and ``--from-dna-column -k 8`` against a
+   numpy oracle of the dna strings' 8-mers, with both kernels' counts set
+   to 0 before and required to rise; (d) the CLI's ``query`` (one
+   ``--eq``, ``--prefix`` and ``--pattern`` each) with and without
+   ``--index``, equal outputs;
+   (e) ``run_query_bench`` at 2^22 and 2^25 keys (every query found by
+   hash and by binary search, the same rows both ways) and (f)
+   ``run_pattern_bench`` at 2^22 keys, each timed with its peak device
+   memory.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -1010,6 +1024,143 @@ def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
 
 
 
+# --- phase 9: the SQL surface ------------------------------------------------
+
+
+SQL_ROWS = 100_000  # kmer-tests.sql's dna_kmer_test table
+SQL_PROBES = 48  # run_scale_parity's default; its oracle takes seconds
+
+
+def run_cli(argv: list[str]) -> tuple[str, str]:
+    """``python -m kmer_tpu_torch <argv>`` in this process (so launch
+    counts are seen); returns (stdout, the ``#`` lines of stderr)."""
+    import contextlib
+    import io
+
+    from kmer_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    check(rc == 0, f"cli {' '.join(argv[:1])} exits 0")
+    return out.getvalue(), "".join(
+        ln for ln in err.getvalue().splitlines(True) if ln.startswith("#"))
+
+
+def counts_printed(out: str) -> dict:
+    pairs = (ln.split("\t") for ln in out.splitlines())
+    return {kmer: int(n) for kmer, n in pairs}
+
+
+def dna_column_oracle(dnas: list[str], k: int) -> dict:
+    """{k-mer: count} over the k-windows of each dna string, with numpy:
+    windows over the rows laid end to end, kept where they lie in one."""
+    lut = np.full(256, 255, np.uint8)
+    lut[np.frombuffer(b"ACGTacgt", np.uint8)] = [0, 1, 2, 3, 0, 1, 2, 3]
+    codes = lut[np.frombuffer("".join(dnas).encode(), np.uint8)]
+    lens = np.array([len(d) for d in dnas], np.int64)
+    ends = np.cumsum(lens)
+    m = codes.size - k + 1
+    keys = np.zeros(m, np.uint64)
+    for j in range(k):
+        keys |= codes[j: j + m].astype(np.uint64) << np.uint64(62 - 2 * j)
+    start = np.arange(m)
+    row_end = ends[np.searchsorted(ends, start, side="right")]
+    uniq, counts = np.unique(keys[start + k <= row_end], return_counts=True)
+    shifts = np.uint64(62) - np.uint64(2) * np.arange(k, dtype=np.uint64)
+    letters = LETTERS.tobytes().lower()
+    strs = (np.frombuffer(letters, np.uint8)[
+        (uniq[:, None] >> shifts[None, :]) & np.uint64(3)]).tobytes()
+    return {strs[i * k: (i + 1) * k].decode(): int(c)
+            for i, c in enumerate(counts)}
+
+
+def sql_phase(dev, tmp: str, card: str) -> dict:
+    """Phase 9; returns the count path's kernels' launches in (a) and (c)."""
+    import collections
+
+    import torch
+
+    from kmer_tpu_torch.bench import run_pattern_bench, run_query_bench
+    from kmer_tpu_torch.parity import run_parity, run_scale_parity
+
+    kernels = count_path_kernels()
+    launches = {}
+
+    zero_launches()
+    t0 = time.perf_counter()
+    check(run_parity(device=dev), "9a: run_parity passes all 11 checks")
+    launches["9a"] = {n: fn.launches for n, fn in kernels.items()}
+    check(launches["9a"]["segment_counts"] > 0,
+          "9a: run_parity launched the segment_counts kernel")
+    log(f"9a: run_parity on {dev} in {time.perf_counter() - t0:.3f} s; "
+        f"kernel launches {launches['9a']}")
+
+    t0 = time.perf_counter()
+    check(run_scale_parity(n_rows=SQL_ROWS, n_probes=SQL_PROBES, device=dev),
+          "9b: scale parity")
+    log(f"9b: run_scale_parity(n_rows={SQL_ROWS}, n_probes={SQL_PROBES}) on "
+        f"{dev} in {time.perf_counter() - t0:.3f} s")
+
+    csv_path = os.path.join(tmp, "sql_rows.csv")
+    run_cli(["datagen", "--rows", str(SQL_ROWS), "--seed", "7",
+             "--out", csv_path])
+    with open(csv_path) as f:
+        rows = [ln.rstrip("\n").split(",") for ln in f][1:]
+    check(len(rows) == SQL_ROWS, "9c: datagen wrote every row")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    out, summary = run_cli(["count", "--input", csv_path, "-k", "8",
+                            "--device", str(dev)])
+    got = counts_printed(out)
+    want = collections.Counter(r[1].lower() for r in rows)
+    check(got == want, "9c: kmer-column GROUP BY equals collections.Counter")
+    # equal keys of other lengths are other groups, so the kmer-column
+    # GROUP BY must not reach the key-only segment-count kernel
+    kmer_col = {n: fn.launches for n, fn in kernels.items()}
+    check(not any(kmer_col.values()),
+          "9c: count (kmer column) launched no count-path kernel")
+    log(f"9c: count (kmer column) in {time.perf_counter() - t0:.3f} s, "
+        f"{summary.strip()}, equal to collections.Counter; kernel launches "
+        f"{kmer_col}")
+    zero_launches()
+    t0 = time.perf_counter()
+    out, summary = run_cli(["count", "--input", csv_path, "-k", "8",
+                            "--from-dna-column", "--device", str(dev)])
+    t_dna = time.perf_counter() - t0
+    launches["9c"] = read_launches("9c: count --from-dna-column")
+    check(counts_printed(out) == dna_column_oracle([r[0] for r in rows], 8),
+          "9c: dna-column 8-mer counts equal the numpy oracle")
+    log(f"9c: count --from-dna-column -k 8 in {t_dna:.3f} s, "
+        f"{summary.strip()}, equal to the numpy oracle; kernel launches "
+        f"{launches['9c']}")
+
+    t0 = time.perf_counter()
+    eq_probe = want.most_common(1)[0][0]
+    for flag, q in (("--eq", eq_probe), ("--prefix", "ac"),
+                    ("--pattern", "angr")):
+        base = ["query", "--input", csv_path, flag, q, "--device", str(dev)]
+        scan, indexed = run_cli(base), run_cli(base + ["--index"])
+        check(scan == indexed, f"9d: query {flag} {q}: index == scan")
+        log(f"9d: query {flag} {q}: {scan[1].strip()} with and without "
+            "--index")
+    log(f"9d: 6 queries in {time.perf_counter() - t0:.3f} s")
+
+    for what, fn, kw in (
+            ("query bench", run_query_bench, {}),
+            ("query bench", run_query_bench, {"n_keys": 1 << 25}),
+            ("pattern bench", run_pattern_bench, {})):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = fn(device=dev, **kw)
+        log(f"9e/f: {what} {kw or 'at its defaults'} in "
+            f"{time.perf_counter() - t0:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev)} bytes ({card})")
+        print(json.dumps(result), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1057,13 +1208,18 @@ def main() -> int:
         fold_launches = fold_phase(dev, tmp, main_fastq, main_table,
                                    cov_fastq, cov_table)
         log(f"phase 8: the streaming fold in {time.perf_counter() - t0:.1f} s")
-    log(f"chip_smoke: phases 1-8 passed in {time.perf_counter() - t_start:.1f}"
+        t0 = time.perf_counter()
+        sql_launches = sql_phase(dev, tmp, card)
+        log(f"phase 9: the SQL surface in {time.perf_counter() - t0:.1f} s "
+            f"({card})")
+    log(f"chip_smoke: phases 1-9 passed in {time.perf_counter() - t_start:.1f}"
         " s")
 
     def by_path(name):
         return {"single_shot (phase 4)": launches[name],
                 "bench (phase 7)": bench_launches[name],
-                **{f"fold ({c})": n[name] for c, n in fold_launches.items()}}
+                **{f"fold ({c})": n[name] for c, n in fold_launches.items()},
+                **{f"sql ({c})": n[name] for c, n in sql_launches.items()}}
 
     main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{

@@ -6,14 +6,26 @@ never JAX.  Module names follow ``kmer_tpu``'s.  Every public entry point
 takes an explicit ``device``; a CUDA tensor goes through the hand-written
 kernels (``kernels/``), a CPU tensor through their plain PyTorch versions.
 
-Ported so far: the file -> exact count table path with both routes
-(``pipeline.count_file``, ``python -m kmer_tpu_torch count``): the
-single-shot count, and the streaming fold into a 64-bit accumulator with
-growth, spill and resumable checkpoints (``ops.wide``,
-``parallel.streaming``); the counting bench (``bench``, ``python -m kmer_tpu_torch bench``) and the
-Pallas probes of ``scripts/`` (``python -m kmer_tpu_torch.probes``).
+Ported so far:
+
+* the file -> exact count table path with both routes
+  (``pipeline.count_file``, ``python -m kmer_tpu_torch count``): the
+  single-shot count, and the streaming fold into a 64-bit accumulator
+  with growth, spill and resumable checkpoints (``ops.wide``,
+  ``parallel.streaming``);
+* the reference's SQL surface: the ``Dna``/``Kmer``/``Qkmer`` types,
+  ``generate_kmers``, the predicates (``ops.predicates``), GROUP BY
+  (``count_packed``, ``count_column``, ``merge_tables``, ``count_dna``),
+  the sorted and hash indexes (``index``), ``KmerTable`` (``api``), joins,
+  the test-data generator and the parity suite (``parity``), with the
+  CLI's ``count`` on CSV, ``extract``, ``query``, ``datagen`` and
+  ``parity``;
+* the bench's counting, query and pattern modes (``bench``, ``python -m
+  kmer_tpu_torch bench``) and the Pallas probes of ``scripts/``
+  (``python -m kmer_tpu_torch.probes``).
 """
 
+from .api import KmerTable  # noqa: F401
 from .errors import (  # noqa: F401
     InvalidDnaSequenceError,
     InvalidKmerLengthError,
@@ -26,12 +38,48 @@ from .kernels.segment_counts import (  # noqa: F401
     segment_counts,
     segment_counts_reference,
 )
-from .ops.count import CountTable, count_windows  # noqa: F401
+from .index import (  # noqa: F401
+    DeviceHashIndex,
+    DeviceIndex,
+    KmerIndex,
+    SearchFence,
+)
+from .joins import (  # noqa: F401
+    join_eq,
+    join_pattern,
+    join_right_starts_with_left,
+    outer_extend,
+)
+from .ops.count import (  # noqa: F401
+    CountTable,
+    count_column,
+    count_dna,
+    count_kmers,
+    count_packed,
+    count_windows,
+    merge_tables,
+)
 from .ops.extract import canonicalize, extract_windows_batch  # noqa: F401
-from .ops.extract import revcomp_packed  # noqa: F401
+from .ops.extract import generate_kmers, revcomp_packed  # noqa: F401
+from .ops.predicates import (  # noqa: F401
+    contains,
+    containing,
+    equals,
+    kmer_hash,
+    length,
+    starts_with,
+    starts_with_op,
+)
 from .ops.wide import WideCounts  # noqa: F401
-from .packed import PackedKmers  # noqa: F401
+from .packed import KmerColumn, PackedKmers  # noqa: F401
+from .parity import run_parity, run_scale_parity  # noqa: F401
 from .pipeline import count_batches_pipelined, count_file  # noqa: F401
-from .utils.checkpoint import load_table, save_table  # noqa: F401
+from .types import Dna, Kmer, Qkmer  # noqa: F401
+from .utils.checkpoint import (  # noqa: F401
+    load_index,
+    load_table,
+    save_index,
+    save_table,
+)
 
 __version__ = "0.1.0"

@@ -17,6 +17,11 @@ card's name.
   words of reads laid back to back, invalid slots folded into the
   sentinel.
 * ``run_chr_bench``: one ~252 Mbp sequence, k = 31, phase-major.
+* ``run_query_bench``: index lookups over random 21-mers: the hash
+  index's equality lookups (the headline), binary-search equality and
+  fenced 8-base prefix ranges on the sorted column, and the builds.
+* ``run_pattern_bench``: qkmer containment (``@>``) through
+  ``DeviceIndex.pattern_hits`` at three selectivities.
 
 Every pass is timed warm and ends in a read of ``n_unique`` to the host,
 which waits for the device.  Each function takes an explicit ``device``:
@@ -31,6 +36,13 @@ import time
 import numpy as np
 import torch
 
+from .device import resolve_device
+from .index import (
+    DeviceHashIndex,
+    DeviceIndex,
+    device_sort_column,
+    searchsorted_packed,
+)
 from .kernels.segment_counts import segment_counts
 from .kernels.wire_keys import wire_keys
 from .native import pack2bit_rows
@@ -42,7 +54,7 @@ from .ops.extract import (
     simulate_coverage_reads,
     simulate_reads,
 )
-from .packed import SIGN_FLIP
+from .packed import SIGN_FLIP, KmerColumn, PackedKmers, key_from_hi_lo
 from .utils.profiling import Profile, phase_timer, synchronize
 
 REFERENCE_KMERS_PER_S = 1.3e6
@@ -295,6 +307,209 @@ def _result(total, dt, n_reads, read_len, k, canonical, n_chunks, n_unique,
             "wall_s": round(dt, 6),
             "total_kmers": total,
             "unique_kmers": n_unique,
+            "device": device_name(device),
+        },
+    }
+
+
+def _random_21mers(rng, n_keys: int) -> PackedKmers:
+    """``kmer_tpu``'s bench keys: random hi, the top 10 bits of lo."""
+    hi = rng.integers(0, 2**32, n_keys, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, n_keys, dtype=np.uint64).astype(
+        np.uint32) & np.uint32(0xFFC00000)
+    return PackedKmers(hi=hi, lo=lo, length=np.full(n_keys, 21, np.int32))
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"bench check failed: {what}")
+
+
+def run_query_bench(n_keys: int = 1 << 22, n_queries: int = 1 << 20,
+                    seed: int = 0, device: torch.device | str = "cuda"
+                    ) -> dict:
+    """Index lookup throughput over random 21-mers, against the
+    reference's SP-GiST scans (eq 0.214 ms => ~4.7e3/s; ^@ 0.968 ms =>
+    ~1.03e3/s, kmer-tests.sql:1321-1353):
+
+    * headline: equality through ``DeviceHashIndex`` (1-2 bucket-row
+      gathers a query);
+    * detail: equality and fenced 8-base prefix ranges by binary search
+      on the sorted column, and both builds.
+
+    Every query key exists, so every lookup must find it; each hash
+    lookup's rows must equal its binary-search range's.
+    """
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    host = _random_21mers(rng, n_keys)
+    col = KmerColumn.from_packed(host, device)
+
+    device_sort_column(col)  # warm
+    synchronize(device)
+    t0 = time.perf_counter()
+    sorted_col, rid = device_sort_column(col)
+    synchronize(device)
+    build_s = time.perf_counter() - t0
+
+    qsel = rng.integers(0, n_keys, n_queries)
+    qkey = torch.from_numpy(key_from_hi_lo(host.hi[qsel], host.lo[qsel])
+                            ).to(device)
+    qln = torch.full((n_queries,), 21, dtype=torch.int32, device=device)
+
+    def lookup():
+        return tuple(searchsorted_packed(sorted_col.key, sorted_col.length,
+                                         qkey, qln, side)
+                     for side in ("left", "right"))
+
+    lookup()
+    synchronize(device)
+    t0 = time.perf_counter()
+    left, right = lookup()
+    hits = int(((right - left) > 0).sum())
+    dt = time.perf_counter() - t0
+    _check(hits == n_queries, f"binary search found {hits} of {n_queries}")
+
+    # prefix ranges (^@, strategy 28): the top 8 bases of each query key
+    dev_idx = DeviceIndex(key=sorted_col.key, length=sorted_col.length,
+                          row_ids=torch.arange(n_keys, device=device))
+    pkey = qkey & -(1 << 48)
+    pln = torch.full((n_queries,), 8, dtype=torch.int32, device=device)
+    fence = dev_idx.build_fence(bits=18)
+    dev_idx.prefix_ranges(pkey, pln, fence=fence)
+    synchronize(device)
+    t0 = time.perf_counter()
+    pl_, pr_ = dev_idx.prefix_ranges(pkey, pln, fence=fence)
+    phits = int(((pr_ - pl_) > 0).sum())
+    dt_p = time.perf_counter() - t0
+    _check(phits == n_queries, f"prefix ranges found {phits} of {n_queries}")
+
+    # the headline: bucketized open addressing, built on the host
+    t0 = time.perf_counter()
+    hidx = DeviceHashIndex.build(host, device=device)
+    synchronize(device)
+    hbuild_s = time.perf_counter() - t0
+    hidx.lookup_eq(qkey, qln)
+    synchronize(device)
+    t0 = time.perf_counter()
+    start, cnt, found = hidx.lookup_eq(qkey, qln)
+    hhits = int(found.sum())
+    dt_h = time.perf_counter() - t0
+    _check(hhits == n_queries, f"hash lookups found {hhits} of {n_queries}")
+
+    # the same rows by hash and by binary search, query by query
+    cap = int(cnt.max())
+    by_hash = hidx.gather_rows(start, cnt, cap)[0]
+    by_range = DeviceIndex(key=sorted_col.key, length=sorted_col.length,
+                           row_ids=rid).gather_rows(left, right, cap)[0]
+    _check(torch.equal(torch.sort(by_hash, 1).values,
+                       torch.sort(by_range, 1).values),
+           "hash rows equal the binary-search rows")
+
+    return {
+        "metric": "index_eq_lookups_per_s_chip",
+        "value": round(n_queries / dt_h, 1),
+        "unit": "lookups/s",
+        "vs_baseline": round((n_queries / dt_h) / 4.7e3, 1),
+        "detail": {
+            "n_keys": n_keys,
+            "n_queries": n_queries,
+            "hash_max_chain": hidx.max_chain,
+            "hash_build_s": round(hbuild_s, 6),
+            "hash_lookup_s": round(dt_h, 6),
+            "binsearch_eq_lookups_per_s": round(n_queries / dt, 1),
+            "sort_build_s": round(build_s, 6),
+            "binsearch_lookup_s": round(dt, 6),
+            "prefix_lookups_per_s": round(n_queries / dt_p, 1),
+            "prefix_lookup_s": round(dt_p, 6),
+            "prefix_vs_baseline": round((n_queries / dt_p) / 1.03e3, 1),
+            "device": device_name(device),
+        },
+    }
+
+
+def run_pattern_bench(n_keys: int = 1 << 22, n_queries: int = 1 << 16,
+                      seed: int = 0, device: torch.device | str = "cuda"
+                      ) -> dict:
+    """Pattern (``@>``, qkmer containment) lookup throughput on a
+    DeviceIndex over random 21-mers, against the reference's contains
+    scan (23.5 ms over 100k rows, kmer-tests.sql:936-944), in three
+    regimes:
+
+    * a determinate 12-base prefix + 9 'n's (<= ~1 candidate a query);
+    * a determinate 6-base prefix + a 2-base IUPAC tail (~1k candidates);
+    * all 'n' (no pruning: the whole column is each query's candidate
+      range), 8 queries.
+
+    Each query is made from a stored key, so each must hit; no query may
+    be truncated.
+    """
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    host = _random_21mers(rng, n_keys)
+    sorted_col, perm = device_sort_column(KmerColumn.from_packed(host, device))
+    dev_idx = DeviceIndex(key=sorted_col.key, length=sorted_col.length,
+                          row_ids=perm)
+
+    def masks_from_keys(sel, det_len, iupac_tail):
+        """[M, MAX_K] masks: the first det_len positions one-hot from the
+        stored key, the rest 'n' or the true base plus one random base."""
+        m = sel.size
+        codes = np.zeros((m, 21), np.uint8)
+        for i in range(21):
+            lane = host.hi if i < 16 else host.lo
+            codes[:, i] = (lane[sel] >> np.uint32(30 - 2 * (i % 16))) & 3
+        masks = np.zeros((m, 32), np.uint32)
+        onehot = np.uint32(1) << codes.astype(np.uint32)
+        det = np.arange(21)[None, :] < det_len
+        if iupac_tail:
+            extra = np.uint32(1) << rng.integers(0, 4, (m, 21)).astype(
+                np.uint32)
+            tail = onehot | extra
+        else:
+            tail = np.full((m, 21), 15, np.uint32)  # 'n'
+        masks[:, :21] = np.where(det, onehot, tail)
+        return masks
+
+    def time_batch(det_len, iupac_tail, nq, cap):
+        sel = rng.integers(0, n_keys, nq)
+        masks = torch.from_numpy(
+            masks_from_keys(sel, det_len, iupac_tail).astype(np.int64)
+        ).to(device)
+        dev_idx.pattern_hits(masks, qlen=21, cap=cap)  # warm
+        synchronize(device)
+        t0 = time.perf_counter()
+        _, ok, trunc = dev_idx.pattern_hits(masks, qlen=21, cap=cap)
+        hits = int(ok.sum())
+        truncated = int(trunc.sum())
+        dt = time.perf_counter() - t0
+        _check(hits >= nq, f"det_len {det_len}: {hits} hits for {nq} "
+               "queries (each query's source key matches)")
+        _check(truncated == 0, f"det_len {det_len}: {truncated} truncated")
+        return dt, hits
+
+    dt12, hits12 = time_batch(12, False, n_queries, cap=16)
+    n6 = max(1, n_queries >> 4)
+    dt6, hits6 = time_batch(6, True, n6, cap=4096)
+    dtw, hitsw = time_batch(0, False, 8, cap=n_keys)
+
+    ref_rate = 1.0 / 0.0235  # reference contains scan: 23.5 ms/query
+    return {
+        "metric": "index_pattern_lookups_per_s_chip",
+        "value": round(n_queries / dt12, 1),
+        "unit": "lookups/s",
+        "vs_baseline": round((n_queries / dt12) / ref_rate, 1),
+        "detail": {
+            "n_keys": n_keys,
+            "prefix12_queries": n_queries,
+            "prefix12_s": round(dt12, 6),
+            "prefix12_hits": hits12,
+            "prefix6_iupac_lookups_per_s": round(n6 / dt6, 1),
+            "prefix6_s": round(dt6, 6),
+            "prefix6_hits": hits6,
+            "worst_all_n_ms_per_query": round(dtw / 8 * 1e3, 4),
+            "worst_all_n_hits": hitsw,
+            "reference_contains_scan_ms": 23.5,
             "device": device_name(device),
         },
     }

@@ -1,17 +1,27 @@
 """Command-line interface of the PyTorch port.
 
-  python -m kmer_tpu_torch count --input reads.fastq -k 21 --canonical
-                                 [--top 10] [--device cuda]
-  python -m kmer_tpu_torch bench [--mode fused|stream|chr] [--reads N]
-                                 [-k 21] [--trace DIR] [--device cuda]
+  python -m kmer_tpu_torch datagen --rows 1000 --out data.csv [--seed 0]
+  python -m kmer_tpu_torch count   --input data.csv|reads.fastq|ref.fasta -k 8
+                                   [--canonical] [--top 10]
+                                   [--from-dna-column] [--device cuda]
+  python -m kmer_tpu_torch extract --dna ACGTACGT -k 3
+  python -m kmer_tpu_torch query   --input data.csv [--index]
+                                   --eq acga | --prefix ac | --pattern angry
+                                   [--device cuda]
+  python -m kmer_tpu_torch parity  [--scale 100000] [--device cuda]
+  python -m kmer_tpu_torch bench   [--mode fused|stream|chr|pattern]
+                                   [--queries] [--reads N] [-k 21]
+                                   [--trace DIR] [--device cuda]
 
-The ``count`` subcommand takes ``kmer_tpu count``'s flags and prints the
-same output for FASTA/FASTQ input: one ``kmer<TAB>count`` line per group
-on stdout, by descending count and then ascending key, and a
-``# N distinct, T total`` line on stderr.
-
-The ``bench`` subcommand takes ``kmer_tpu bench``'s flags and prints the
-one-line result JSON as the last line of stdout.
+Each subcommand takes ``kmer_tpu``'s flags and prints the same output;
+those that touch a device also take ``--device`` (default cuda, which
+raises without a card).  ``count`` prints one ``kmer<TAB>count`` line per
+group on stdout, by descending count and then ascending key, and a
+``# N distinct, T total`` line on stderr; on a CSV it groups the kmer
+column, or with ``--from-dna-column`` counts the k-mers of the dna
+column.  ``query`` prints the matching rows as CSV and ``# N rows`` on
+stderr.  ``bench`` prints the one-line result JSON as the last line of
+stdout.  ``extract`` and ``datagen`` run on the host.
 """
 
 from __future__ import annotations
@@ -35,30 +45,66 @@ def _infer_format(path: str) -> str:
     return "csv"
 
 
+def _cmd_datagen(args) -> int:
+    from .io.datagen import generate_test_rows, rows_to_csv
+
+    rows = generate_test_rows(args.rows, seed=args.seed)
+    rows_to_csv(rows, args.out)
+    print(f"wrote {len(rows)} rows to {args.out}")
+    return 0
+
+
+def _cmd_extract(args) -> int:
+    from .ops.extract import generate_kmers
+
+    for km in generate_kmers(args.dna, args.k):
+        print(str(km))
+    return 0
+
+
 def _cmd_count(args) -> int:
+    from .api import KmerTable
     from .ops.wide import WideCounts
     from .packed import PackedKmers
-    from .pipeline import count_file
+    from .pipeline import (
+        column_batch_feed,
+        count_batches_pipelined,
+        count_file,
+        initial_capacity,
+    )
     from .utils.logging import StatsCounters, get_logger
 
     log = get_logger()
     stats = StatsCounters()
     fmt = args.format or _infer_format(args.input)
-    if fmt == "csv":
-        raise NotImplementedError(
-            "CSV input (the kmer/dna column GROUP BY) is not ported to "
-            "kmer_tpu_torch yet (ROADMAP.md §1 item 8)")
-    result = count_file(
-        args.input, fmt, args.k, canonical=args.canonical,
-        batch=args.batch or None, width=args.width or None,
-        chunk_bytes=args.chunk_mb << 20 if args.chunk_mb else None,
-        capacity=args.slots,
-        max_capacity=args.max_slots or None,
-        spill_dir=args.spill_dir,
-        stats=stats,
-        ckpt_path=args.ckpt,
-        device=args.device,
-    )
+    if fmt in ("fasta", "fastq"):
+        result = count_file(
+            args.input, fmt, args.k, canonical=args.canonical,
+            batch=args.batch or None, width=args.width or None,
+            chunk_bytes=args.chunk_mb << 20 if args.chunk_mb else None,
+            capacity=args.slots,
+            max_capacity=args.max_slots or None,
+            spill_dir=args.spill_dir,
+            stats=stats,
+            ckpt_path=args.ckpt,
+            device=args.device,
+        )
+    elif args.from_dna_column:
+        table = KmerTable.from_csv(args.input, device=args.device)
+        seqs = [str(d) for d in table.dna]
+        feed, _, _ = column_batch_feed(seqs, args.k, batch=args.batch or None,
+                                       width=args.width or None)
+        cap = initial_capacity(args.slots, args.k, sum(len(s) for s in seqs))
+        if args.max_slots:
+            cap = min(cap, args.max_slots)
+        result = count_batches_pipelined(
+            feed, args.k, canonical=args.canonical, stats=stats,
+            capacity=cap, max_capacity=args.max_slots or None,
+            spill_dir=args.spill_dir, device=args.device)
+    else:
+        table = KmerTable.from_csv(args.input, device=args.device)
+        result = table.group_by_kmer()
+        stats.record_batch(len(table), 0, result.total(), result.distinct())
     log.info("stats %s", stats.to_json())
     # trimmed rows are in ascending key order, so a stable sort by -count
     # keeps ties key-ascending; only the printed rows are decoded
@@ -90,17 +136,48 @@ def _cmd_count(args) -> int:
     return 0
 
 
+def _cmd_query(args) -> int:
+    from .api import KmerTable
+
+    table = KmerTable.from_csv(args.input, device=args.device)
+    if args.index:
+        table.create_index()
+    if args.eq is not None:
+        ids = table.where_eq(args.eq)
+    elif args.prefix is not None:
+        ids = table.where_prefix(args.prefix)
+    elif args.pattern is not None:
+        ids = table.where_pattern(args.pattern)
+    else:
+        print("one of --eq/--prefix/--pattern required", file=sys.stderr)
+        return 2
+    for row in table.rows(ids):
+        print(",".join(row))
+    print(f"# {len(ids)} rows", file=sys.stderr)
+    return 0
+
+
+def _cmd_parity(args) -> int:
+    from .parity import run_parity, run_scale_parity
+
+    ok = run_parity(device=args.device)
+    if args.scale:
+        ok = run_scale_parity(n_rows=args.scale, device=args.device) and ok
+    return 0 if ok else 1
+
+
 def _cmd_bench(args) -> int:
     from . import bench
 
-    if args.queries or args.mode in ("shq", "pattern"):
+    if args.mode == "shq" and not args.queries:
         raise NotImplementedError(
-            "the query, pattern and shq bench modes need the index and the "
-            "predicates, which are not ported yet (ROADMAP.md §1 item 8)")
+            "the shq bench mode (sharded index serving) comes with the "
+            "multi-device port (ROADMAP.md §1 item 6)")
     if args.no_pallas:
         raise NotImplementedError(
-            "--no-pallas is not ported: on a CUDA device the count always "
-            "launches the segment-count kernel (ROADMAP.md §1)")
+            "--no-pallas (kmer_tpu's EngineConfig.use_pallas) is not "
+            "ported: on a CUDA device the count always launches the "
+            "segment-count kernel (ROADMAP.md §1 item 2, config)")
     trace = contextlib.nullcontext()
     if args.trace:
         from torch.profiler import (
@@ -113,7 +190,11 @@ def _cmd_bench(args) -> int:
                         on_trace_ready=tensorboard_trace_handler(args.trace))
     canonical = not args.no_canonical
     with trace:
-        if args.mode == "chr":
+        if args.queries:
+            result = bench.run_query_bench(device=args.device)
+        elif args.mode == "pattern":
+            result = bench.run_pattern_bench(device=args.device)
+        elif args.mode == "chr":
             result = bench.run_chr_bench(device=args.device)
         elif args.mode == "stream":
             result = bench.run_bench_stream(
@@ -128,16 +209,35 @@ def _cmd_bench(args) -> int:
     return 0
 
 
+def _device_flag(parser) -> None:
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda, which raises without a card; cpu "
+        "runs the plain PyTorch versions of the kernels)")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kmer_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    c = sub.add_parser("count", help="GROUP BY counts over a FASTA/FASTQ file")
+    g = sub.add_parser("datagen", help="generate random test rows "
+                       "(data_generator.py shape)")
+    g.add_argument("--rows", type=int, default=1000)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--out", required=True)
+    g.set_defaults(fn=_cmd_datagen)
+
+    e = sub.add_parser("extract", help="generate_kmers over a dna literal")
+    e.add_argument("--dna", required=True)
+    e.add_argument("-k", type=int, required=True)
+    e.set_defaults(fn=_cmd_extract)
+
+    c = sub.add_parser("count",
+                       help="GROUP BY counts over a CSV/FASTA/FASTQ file")
     c.add_argument("--input", required=True)
     c.add_argument(
         "--format", choices=["csv", "fasta", "fastq"], default=None,
-        help="input format (default: inferred from the file extension; "
-        "csv is not ported yet)",
+        help="input format (default: inferred from the file extension)",
     )
     c.add_argument("-k", type=int, default=8)
     c.add_argument("--canonical", action="store_true")
@@ -175,13 +275,32 @@ def main(argv=None) -> int:
         "the streaming fold)",
     )
     c.add_argument(
-        "--device", default="cuda",
-        help="torch device to count on (default cuda; cpu runs the plain "
-        "PyTorch versions of the kernels)",
+        "--from-dna-column", action="store_true",
+        help="CSV: count the k-mers of the dna column instead of grouping "
+        "the kmer column",
     )
+    _device_flag(c)
     c.set_defaults(fn=_cmd_count)
 
-    b = sub.add_parser("bench", help="counting throughput benchmark (one card)")
+    q = sub.add_parser("query", help="filter rows by kmer predicate")
+    q.add_argument("--input", required=True)
+    q.add_argument("--index", action="store_true",
+                   help="build + use the sorted index")
+    q.add_argument("--eq")
+    q.add_argument("--prefix")
+    q.add_argument("--pattern")
+    _device_flag(q)
+    q.set_defaults(fn=_cmd_query)
+
+    pr = sub.add_parser("parity", help="run the reference-suite parity checks")
+    pr.add_argument("--scale", type=int, default=0, metavar="N",
+                    help="also run the N-row scale parity (scan == index == "
+                    "oracle, GROUP BY oracle; 100000 is the reference "
+                    "suite's size)")
+    _device_flag(pr)
+    pr.set_defaults(fn=_cmd_parity)
+
+    b = sub.add_parser("bench", help="throughput benchmark (one card)")
     b.add_argument("--reads", type=int, default=1 << 20)
     b.add_argument("--read-len", type=int, default=150)
     b.add_argument("-k", type=int, default=21)
@@ -192,22 +311,24 @@ def main(argv=None) -> int:
     b.add_argument("--mode",
                    choices=["fused", "stream", "chr", "shq", "pattern"],
                    default="fused",
-                   help="shq and pattern are not ported yet (raise)")
+                   help="pattern: qkmer containment lookups; shq is not "
+                   "ported yet (raises)")
     b.add_argument("--queries", action="store_true",
-                   help="index lookups instead of counting; not ported yet "
-                   "(raises)")
+                   help="benchmark index lookups instead of counting")
     b.add_argument("--trace", metavar="DIR", default=None,
                    help="write a torch.profiler trace of the run to DIR")
     b.add_argument("--coverage-genome", type=int, default=None,
                    metavar="BASES",
                    help="sample reads from one random genome of this size "
                    "(realistic duplication) instead of uniform-random")
-    b.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                   "PyTorch versions of the kernels)")
+    _device_flag(b)
     b.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
+    if getattr(args, "device", None) is not None:
+        from .device import resolve_device
+
+        resolve_device(args.device)  # raise before any input is read
     return args.fn(args)
 
 

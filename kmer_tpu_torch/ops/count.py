@@ -8,8 +8,16 @@ of the sign-flipped int64 key.
 
 Table layout ("sorted-run" form): a CountTable's ``keys`` hold the sorted
 keys with duplicates in place; ``counts`` holds each segment's total in
-one slot of the segment (the kernel's tail slot) and 0 elsewhere, so live
-groups are ``counts > 0``, in ascending key order.
+one slot of the segment (the tail slot) and 0 elsewhere, so live groups
+are ``counts > 0``, in ascending key order.
+
+Two paths, as in ``kmer_tpu``:
+* unit weights at one k (``count_windows``, ``count_kmers``,
+  ``count_dna``): sort + the segment-count kernel;
+* weighted GROUP BY over ``(key, length)`` (``count_packed``,
+  ``count_column``, ``merge_tables``): plain torch, because equal keys of
+  different lengths are different groups ('a', 'aa' and 'aaa' all have
+  key 0) and the kernel compares keys alone.
 """
 
 from __future__ import annotations
@@ -19,8 +27,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.segment_counts import segment_counts
-from ..packed import SIGN_FLIP, PackedKmers, hi_lo_from_key, key_from_hi_lo
+from ..packed import (
+    SIGN_FLIP,
+    KmerColumn,
+    PackedKmers,
+    hi_lo_from_key,
+    key_from_hi_lo,
+)
+from ..types import Dna
+from .extract import canonicalize, extract_windows_batch
 
 # Sentinel lanes for invalid slots (the values of kmer_tpu/ops/count.py):
 # an invalid window's key is all ones, and its length lane SENTINEL_LEN.
@@ -129,3 +146,76 @@ def count_windows(keys: torch.Tensor, valid: torch.Tensor | None,
                              k).to(torch.int32)
     return CountTable(keys=flipped.bitwise_xor_(SIGN_FLIP), length=length,
                       counts=counts, n_unique=n_unique)
+
+
+def count_packed(keys: torch.Tensor, length: torch.Tensor,
+                 weights: torch.Tensor) -> CountTable:
+    """Weighted GROUP BY over ``(key, length)`` (the general / merge path).
+
+    Slots of weight <= 0 are absent.  The table has one slot per input
+    slot: groups ascend in unsigned key order and then length, each total
+    at its segment's tail slot; absent slots sort last as sentinels (key
+    all ones, length SENTINEL_LEN, count 0).  Order comes from two stable
+    sorts, by length and then by the flipped key.  Totals are int64 sums
+    cast to the int32 counts lane: exact while a group's total fits int32,
+    as ``kmer_tpu``'s are (its ``count_packed`` docstring), and wrapped
+    mod 2^32 past that; 64-bit totals are ``ops/wide``'s.
+    """
+    keys = keys.reshape(-1)
+    length = length.reshape(-1).to(torch.int32)
+    weights = weights.reshape(-1).to(torch.int64)
+    live = weights > 0
+    keys = torch.where(live, keys, SENTINEL_KEY)
+    length = torch.where(live, length, int(SENTINEL_LEN))
+    weights = torch.where(live, weights, 0)
+    order = torch.sort(length, stable=True).indices
+    order = order[torch.sort((keys ^ SIGN_FLIP)[order], stable=True).indices]
+    keys, length, weights = keys[order], length[order], weights[order]
+    n = keys.numel()
+    tail = torch.ones(n, dtype=torch.bool, device=keys.device)
+    tail[:-1] = (keys[1:] != keys[:-1]) | (length[1:] != length[:-1])
+    ends = torch.nonzero(tail).squeeze(1)
+    csum = torch.cumsum(weights, 0)[ends]
+    totals = csum.clone()
+    totals[1:] -= csum[:-1]
+    counts = torch.zeros(n, dtype=torch.int64, device=keys.device)
+    counts[ends] = totals
+    counts = torch.where(length == int(SENTINEL_LEN), 0,
+                         counts).to(torch.int32)
+    return CountTable(keys=keys, length=length, counts=counts,
+                      n_unique=(counts > 0).sum().to(torch.int32))
+
+
+def count_column(col: KmerColumn, valid: torch.Tensor | None = None
+                 ) -> CountTable:
+    """GROUP BY over a kmer column of mixed lengths (TEST 13); ``valid``
+    leaves rows out."""
+    w = (torch.ones_like(col.length) if valid is None
+         else valid.to(torch.int32))
+    return count_packed(col.key, col.length, w)
+
+
+def merge_tables(a: CountTable, b: CountTable) -> CountTable:
+    """Associative merge of two tables (counts add per group)."""
+    return count_packed(torch.cat([a.keys, b.keys]),
+                        torch.cat([a.length, b.length]),
+                        torch.cat([a.counts, b.counts]))
+
+
+def count_kmers(reads_codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                canonical: bool = False) -> CountTable:
+    """Count every k-window of padded reads: codes [B, L], lengths [B].
+    ``canonical`` counts min(kmer, revcomp); off for reference parity."""
+    keys, valid = extract_windows_batch(reads_codes, lengths, k)
+    if canonical:
+        keys = canonicalize(keys, k)
+    return count_windows(keys, valid, k)
+
+
+def count_dna(dna, k: int, canonical: bool = False, *,
+              device: str | torch.device) -> CountTable:
+    """generate_kmers + GROUP BY of one dna value, on ``device``."""
+    device = resolve_device(device)
+    codes = torch.from_numpy(Dna(dna).codes).to(device)
+    lengths = torch.tensor([codes.numel()], dtype=torch.int32, device=device)
+    return count_kmers(codes[None, :], lengths, k, canonical)

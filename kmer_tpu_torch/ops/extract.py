@@ -4,6 +4,10 @@ The counterpart of ``kmer_tpu/ops/extract.py``.  A key is the 64-bit
 left-aligned packing of ``packed.py`` held in one int64; every function
 here is plain PyTorch on the device of its input.
 
+``generate_kmers`` is the parity form of the reference's SRF
+(kmer.c:287-351) on the host: windows in order, duplicates kept, and
+"Invalid KMER Length" for k <= 0, k > 32 or k > len(dna).
+
 Two int64 traps shape the code: ``>>`` is arithmetic, so every right
 shift of a key is masked after it, and key order is unsigned, so
 comparisons run on ``key ^ SIGN_FLIP``.
@@ -17,6 +21,23 @@ import torch
 from ..codec import MAX_K
 from ..errors import InvalidKmerLengthError
 from ..packed import SIGN_FLIP
+from ..types import Dna, Kmer
+
+
+def generate_kmers(dna, k: int) -> list[Kmer]:
+    """The k-windows of a dna value as Kmers, in order, duplicates kept;
+    len(dna) < k, k <= 0 or k > 32 raise "Invalid KMER Length"."""
+    d = Dna(dna)
+    k = int(k)
+    if len(d) < k or k <= 0 or k > MAX_K:
+        raise InvalidKmerLengthError()
+    codes = d.codes
+    return [Kmer.from_codes(codes[i: i + k]) for i in range(len(d) - k + 1)]
+
+
+def extract_to_strings(dna, k: int) -> list[str]:
+    """generate_kmers as lowercase strings."""
+    return [str(km) for km in generate_kmers(dna, k)]
 
 
 def _top_mask(k: int) -> int:

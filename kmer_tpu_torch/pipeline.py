@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .codec import MAX_K
+from .device import resolve_device
 from .errors import InvalidKmerLengthError
 from .kernels.wire_keys import wire_keys
 from .native import rows_packed
@@ -233,17 +234,6 @@ class _Feeder(threading.Thread):
             self._put(None)
         except BaseException as e:  # raised again in the consumer
             self._put(e)
-
-
-def _device(device: str | torch.device) -> torch.device:
-    """The device to count on; a CUDA device without a card raises here,
-    before any file is read."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} was asked for, but torch.cuda.is_available() "
-            "is False")
-    return device
 
 
 def _upload(wire: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -465,7 +455,7 @@ def count_batches_pipelined(
     exact K-way merge.  With ``profile``, the device phases of every
     batch are timed (with a synchronize around each).
     """
-    device = _device(device)
+    device = resolve_device(device)
     cap = 1 << max(3, int(capacity - 1).bit_length())
     max_cap = None
     if max_capacity is not None and max_capacity:
@@ -597,7 +587,7 @@ def count_file(
     takes the fold, and so does a file whose estimate undershot (found
     mid-stream).  ``profile`` times the fold's device phases.
     """
-    device = _device(device)
+    device = resolve_device(device)
     if not 1 <= k <= MAX_K:
         raise InvalidKmerLengthError()
     feed, batch, width, est_windows = file_batch_feed(

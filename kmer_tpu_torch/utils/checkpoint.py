@@ -1,9 +1,11 @@
-"""Count-table snapshots in ``kmer_tpu``'s npz layout, so a table saved by
-either package loads in the other (counterpart of
+"""Count-table and index snapshots in ``kmer_tpu``'s npz layout, so a
+file saved by either package loads in the other (counterpart of
 ``kmer_tpu/utils/checkpoint.py``).
 
-Layout: ``hi``/``lo`` uint32, ``length`` int32, ``counts`` int64 of the
-live groups, and ``meta``, a JSON string with ``"version": 1``.
+Table layout: ``hi``/``lo`` uint32, ``length`` int32, ``counts`` int64 of
+the live groups.  Index layout: ``KmerIndex``'s ``sorted_keys`` uint64,
+``sorted_lens`` int32 and ``row_ids`` int64.  Both carry ``meta``, a JSON
+string with ``"version": 1``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import tempfile
 
 import numpy as np
 
+from ..index import KmerIndex
 from ..ops.count import CountTable
 
 _FORMAT_VERSION = 1
@@ -65,3 +68,22 @@ def load_table(path: str) -> tuple[CountTable, dict]:
         table = CountTable.from_numpy(z["hi"], z["lo"], z["length"],
                                       z["counts"].astype(np.int32))
     return table, meta
+
+
+def save_index(index: KmerIndex, path: str, meta: dict | None = None) -> None:
+    atomic_savez(
+        path,
+        sorted_keys=index.sorted_keys,
+        sorted_lens=index.sorted_lens,
+        row_ids=index.row_ids,
+        meta=json.dumps({"version": _FORMAT_VERSION, **(meta or {})}),
+    )
+
+
+def load_index(path: str) -> tuple[KmerIndex, dict]:
+    """(KmerIndex, meta) from an index file written by either package."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        idx = KmerIndex(sorted_keys=z["sorted_keys"],
+                        sorted_lens=z["sorted_lens"], row_ids=z["row_ids"])
+    return idx, meta

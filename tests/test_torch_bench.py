@@ -118,13 +118,28 @@ def test_cli_bench_last_line_is_the_result(mode, capsys, monkeypatch):
     assert out["detail"]["device"] == "cpu"
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mode", "shq"], ["--mode", "pattern"], ["--queries"],
-    ["--no-pallas"],
-])
+@pytest.mark.parametrize("argv", [["--mode", "shq"], ["--no-pallas"]])
 def test_cli_bench_unported_modes_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """shq and --no-pallas are not ported and raise, citing their ROADMAP
+    item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
         main(["bench", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv, metric", [
+    (["--queries"], "index_eq_lookups_per_s_chip"),
+    (["--mode", "pattern"], "index_pattern_lookups_per_s_chip"),
+])
+def test_cli_bench_query_modes_print_their_metric(argv, metric, capsys,
+                                                  monkeypatch):
+    # the benches' default sizes are full-size runs: cut them here
+    monkeypatch.setattr(tb.run_query_bench, "__defaults__",
+                        (1 << 12, 1 << 10, 0, "cuda"))
+    monkeypatch.setattr(tb.run_pattern_bench, "__defaults__",
+                        (1 << 12, 1 << 8, 0, "cuda"))
+    assert main(["bench", "--device", "cpu", *argv]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == metric and out["detail"]["device"] == "cpu"
 
 
 def test_cli_bench_trace_writes_a_profile(tmp_path, capsys):

@@ -407,3 +407,141 @@ def test_pipelined_fold_on_cuda_equals_cpu(tmp_path):
         assert launched == ((12, 12) if d == dev else (0, 0))
     for got, want in zip(results[dev].to_numpy(), results["cpu"].to_numpy()):
         np.testing.assert_array_equal(got, want)
+
+
+# --- the SQL surface on the card: every result equals the CPU's ----------
+
+
+def _sql_rows(n, seed):
+    from kmer_tpu_torch.io.datagen import generate_test_rows
+
+    return generate_test_rows(n, seed=seed) + [
+        ("ACGT", "acga", "angry"), ("A", "", "n"), ("TT", "t" * 32, "u")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, canonical", [(4, False), (21, True), (32, False)])
+def test_count_dna_on_cuda_launches_the_kernel(k, canonical):
+    from kmer_tpu_torch.ops.count import count_dna
+
+    dev = _cuda()
+    dna = "".join("ACGT"[c] for c in np.random.default_rng(k).integers(
+        0, 4, 5000)) + "T" * 40
+    before = segment_counts.launches
+    got = count_dna(dna, k, canonical, device=dev)
+    assert segment_counts.launches == before + 1
+    want = count_dna(dna, k, canonical, device="cpu")
+    for g, w in zip(got.trim().to_numpy(), want.trim().to_numpy()):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("indexed", [False, True])
+def test_kmer_table_on_cuda_equals_cpu(indexed):
+    from kmer_tpu_torch.api import KmerTable
+
+    dev = _cuda()
+    rows = _sql_rows(3000, 7)
+    tables = [KmerTable.from_rows(rows, device=d) for d in (dev, "cpu")]
+    for t in tables:
+        if indexed:
+            t.create_index()
+        t.insert_rows(_sql_rows(40, 8))
+        t.delete_where_kmer_eq("acga")
+    answers = []
+    for t in tables:
+        answers.append((
+            [t.where_eq(q).tolist() for q in ("acga", "", "t" * 32, "a")],
+            [t.where_prefix(q).tolist() for q in ("", "a", "ac", "t" * 32)],
+            [t.where_pattern(q).tolist() for q in ("angry", "n" * 8, "u")],
+            t.group_by_kmer().to_dict(), t.distinct_kmers()))
+    assert answers[0] == answers[1]
+    assert tables[0]._jcol().key.is_cuda
+
+
+@pytest.mark.gpu
+def test_device_indexes_on_cuda_equal_cpu():
+    from kmer_tpu_torch.index import DeviceHashIndex, DeviceIndex
+    from kmer_tpu_torch.ops.predicates import qkmer_mask_vector
+    from kmer_tpu_torch.packed import KmerColumn, PackedKmers
+
+    dev = _cuda()
+    kmers = [r[1].lower() for r in _sql_rows(5000, 11)]
+    host = PackedKmers.from_strings(kmers)
+    q = PackedKmers.from_strings(kmers[::13] + ["", "t" * 32, "gggg", "t"])
+    pats = ["nnnn", "angr", "acga", "n" * 21, "t" * 32]
+    masks = torch.from_numpy(np.stack(
+        [qkmer_mask_vector(p)[0] for p in pats if len(p) == 4]
+    ).astype(np.int64))
+    out = []
+    for d in (dev, "cpu"):
+        idx = DeviceIndex.build(KmerColumn.from_packed(host, d))
+        qc = KmerColumn.from_packed(q, d)
+        fence = idx.build_fence(bits=12)
+        rows, hit, trunc = idx.pattern_hits(masks.to(d), qlen=4, cap=64)
+        h = DeviceHashIndex.build(host, device=d)
+        out.append([t.cpu() for t in (
+            *idx.eq_ranges(qc.key, qc.length),
+            *idx.eq_ranges(qc.key, qc.length, fence),
+            *idx.prefix_ranges(qc.key, qc.length, fence),
+            rows, hit, trunc, h.table, *h.lookup_eq(qc.key, qc.length))]
+            + [r.tolist() for r in idx.search_pattern_batch(pats, cap=8)])
+    for g, w in zip(*out):
+        assert (torch.equal(g, w) if isinstance(g, torch.Tensor) else g == w)
+
+
+@pytest.mark.gpu
+def test_v_hash_on_cuda_is_bit_equal():
+    from kmer_tpu_torch.ops.predicates import _hash_finalize_np, v_hash
+    from kmer_tpu_torch.packed import KmerColumn, key_from_hi_lo
+
+    dev = _cuda()
+    hi, lo = _u32(100_000, 1), _u32(100_000, 2)
+    ln = np.random.default_rng(3).integers(0, 33, 100_000).astype(np.int32)
+    col = KmerColumn(key=torch.from_numpy(key_from_hi_lo(hi, lo)).to(dev),
+                     length=torch.from_numpy(ln).to(dev))
+    np.testing.assert_array_equal(v_hash(col).cpu().numpy(),
+                                  _hash_finalize_np(hi, lo, ln).view(np.int32))
+
+
+@pytest.mark.gpu
+def test_parity_on_cuda(capsys):
+    from kmer_tpu_torch.parity import run_parity, run_scale_parity
+
+    _cuda()
+    before = segment_counts.launches
+    assert run_parity(device="cuda")
+    assert segment_counts.launches > before
+    assert run_scale_parity(n_rows=3000, n_probes=12, device="cuda")
+    assert "FAIL" not in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_cli_dna_column_count_on_cuda_equals_cpu(tmp_path, capsys):
+    from kmer_tpu_torch.cli import main
+    from kmer_tpu_torch.io.datagen import rows_to_csv
+
+    _cuda()
+    path = str(tmp_path / "rows.csv")
+    rows_to_csv(_sql_rows(2000, 21), path)
+    out = []
+    for dev in ("cuda", "cpu"):
+        before = (wire_keys.launches, segment_counts.launches)
+        assert main(["count", "--input", path, "-k", "8",
+                     "--from-dna-column", "--device", dev]) == 0
+        if dev == "cuda":
+            assert wire_keys.launches > before[0]
+            assert segment_counts.launches > before[1]
+        out.append(capsys.readouterr().out)
+    assert out[0] == out[1] and out[0].count("\n") > 100
+
+
+@pytest.mark.gpu
+def test_query_and_pattern_bench_on_cuda():
+    from kmer_tpu_torch.bench import run_pattern_bench, run_query_bench
+
+    _cuda()
+    q = run_query_bench(n_keys=1 << 16, n_queries=1 << 14, device="cuda")
+    p = run_pattern_bench(n_keys=1 << 16, n_queries=1 << 12, device="cuda")
+    assert q["detail"]["device"] == p["detail"]["device"] != "cpu"
+    assert q["value"] > 0 and p["detail"]["prefix12_hits"] >= 1 << 12
