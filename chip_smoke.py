@@ -72,7 +72,29 @@ Phases, each of which must pass or the script exits nonzero:
    (e) ``run_query_bench`` at 2^22 and 2^25 keys (every query found by
    hash and by binary search, the same rows both ways) and (f)
    ``run_pattern_bench`` at 2^22 keys, each timed with its peak device
-   memory.
+   memory;
+10. the rest of the one-device engine, each case with the count path's
+   launch counts set to 0 just before it and read just after: (a)
+   ``KmerCounter`` (k = 21, canonical) over phase 4's reads in 8 steps of
+   2^17 reads, merged exactly, equal to phase 4's table, 8 segment-count
+   launches; (b) the dense route, ``KmerCounter`` at k = 6 and
+   ``count_kmers_auto`` at k = 8, each equal to the sort route's table at
+   its k, no segment-count launch, and both routes timed at k = 4, 6, 8,
+   10; (c) the graft entry on the card, equal to its CPU result; (d)
+   ``count_long_sequence`` over the chr sequence of phase 7 (251,658,240
+   bases, k = 31, canonical, chunks of 2^24), its distinct count equal to
+   phase 7's, then a resumable run over its first 2^25 bases checkpointed
+   after half its chunks, resumed in a new ``ResumableCount`` and equal
+   to the fast path; (e) ``count_read_stream`` over phase 4's reads in
+   batches of 2^17, equal to phase 4's table, and its first 3 batches
+   under a 2^25-slot budget with spills to a directory, equal to (a)'s
+   table after 3 steps; (f) ``serve`` on the card: a 1,000,000-row
+   ``datagen`` CSV loaded and indexed, 1,000 mixed EQ/PREFIX/PATTERN
+   queries timed (p50/p99) and each equal to the table's scan on the
+   card; then at phase 9's 100,000 rows a ``--wal`` server killed with -9
+   after its acks and restarted with ``--tcp``, whose 4 concurrent
+   clients must answer as the killed server's stdin did; (g) ``python -m
+   kmer_tpu_torch selftest --device cuda``.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -252,12 +274,15 @@ def zero_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(what: str) -> dict:
+def read_launches(what: str, want: dict | None = None) -> dict:
     """The count path's kernels' launches since ``zero_launches``; each
-    must have launched."""
+    must be its ``want`` (an int, or a (low, high) range), by default at
+    least 1."""
     launches = {name: fn.launches for name, fn in count_path_kernels().items()}
     for name, n in launches.items():
-        check(n > 0, f"{what} launched the {name} kernel")
+        w = (want or {}).get(name, (1, float("inf")))
+        lo, hi = w if isinstance(w, tuple) else (w, w)
+        check(lo <= n <= hi, f"{what}: {n} {name} launches, expected {w}")
     return launches
 
 
@@ -793,9 +818,11 @@ def probe_edges(dev) -> dict:
     return overlap_worst_cases(dev, rng)
 
 
-def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
+def bench_on_card(dev, main_distinct: int, coverage_distinct: int
+                  ) -> tuple[dict, int]:
     """The bench's modes on the card, held against phases 4 and 5; returns
-    the count path's kernels' launches in them."""
+    the count path's kernels' launches in them and the chr sequence's
+    distinct count."""
     import torch
 
     from kmer_tpu_torch import bench
@@ -844,7 +871,7 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int) -> int:
           f"{want} (numpy oracle)")
     launches = read_launches("the bench")
     log(f"bench: exact on every mode; kernel launches {launches}")
-    return launches
+    return launches, second
 
 
 # --- phase 8: the streaming fold ---------------------------------------------
@@ -1161,6 +1188,489 @@ def sql_phase(dev, tmp: str, card: str) -> dict:
     return launches
 
 
+# --- phase 10: the rest of the one-device engine ------------------------------
+
+STEP_READS = 1 << 17  # (a), (e): reads a KmerCounter step / stream batch
+DENSE_KS = (4, 6, 8, 10)  # (b): both routes timed at these k
+CHR_BASES, CHR_K, CHR_CHUNK = 15 << 24, 31, 1 << 24  # (d): configs[4]
+RESUME_BASES = 1 << 25  # (d): the resumable run's prefix
+STREAM_BUDGET = 1 << 25  # (e): the spill run's slot budget
+SERVE_ROWS, SERVE_QUERIES, SERVE_CLIENTS = 1_000_000, 1000, 4  # (f)
+
+
+def same_rows(got_keys, got_counts, want, what: str) -> None:
+    """(keys, counts) on any device equal a trimmed host table's."""
+    import torch
+
+    check(torch.equal(got_keys.cpu(), want.keys), f"{what}: keys equal")
+    check(torch.equal(got_counts.cpu().to(torch.int64),
+                      want.counts.to(torch.int64)), f"{what}: counts equal")
+
+
+def counter_case(dev, reads, main_table) -> tuple[dict, tuple]:
+    """10a; returns the launches and the merged table after 3 steps."""
+    import torch
+
+    from kmer_tpu_torch.config import EngineConfig
+    from kmer_tpu_torch.models import KmerCounter
+    from kmer_tpu_torch.ops.wide import merge_groups, table_groups
+
+    cfg = EngineConfig(k=K, canonical=True, chunk_reads=STEP_READS,
+                       read_len=READ_LEN)
+    lengths = np.full(cfg.chunk_reads, READ_LEN, np.int32)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    counter = KmerCounter(cfg, device=dev)
+    keys = counts = after3 = None
+    for i, s in enumerate(range(0, MAIN_READS, cfg.chunk_reads)):
+        part = reads[s: s + cfg.chunk_reads]
+        groups = table_groups(counter.step(part, lengths[: part.shape[0]]))
+        keys, counts = groups if keys is None else merge_groups(
+            keys, counts, *groups)
+        if i == 2:
+            after3 = (keys.cpu(), counts.cpu())
+    counter.check_exact()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    steps = -(-MAIN_READS // cfg.chunk_reads)
+    launches = read_launches("10a", {"wire_keys": 0,
+                                     "segment_counts": steps})
+    same_rows(keys, counts, main_table, "10a: KmerCounter, merged")
+    windows = MAIN_READS * cfg.windows_per_read()
+    log(f"10a: KmerCounter k={K} canonical, {steps} steps of "
+        f"{cfg.chunk_reads} reads merged: {wall:.3f} s = "
+        f"{windows / wall:.1f} k-mers/s; equal to phase 4's table; "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes")
+    return launches, after3
+
+
+def dense_case(dev, reads) -> tuple[dict, dict]:
+    """10b; returns the launches and the two routes' times by k."""
+    import torch
+
+    from kmer_tpu_torch.config import EngineConfig
+    from kmer_tpu_torch.models import KmerCounter
+    from kmer_tpu_torch.ops import count_kmers_auto
+    from kmer_tpu_torch.ops.count import count_kmers
+    from kmer_tpu_torch.ops.dense_count import (
+        count_kmers_dense, dense_histogram, right_aligned_keys)
+    from kmer_tpu_torch.ops.extract import canonicalize, extract_windows_batch
+
+    codes = torch.from_numpy(reads).to(dev)
+    lens = torch.full((MAIN_READS,), READ_LEN, dtype=torch.int32,
+                      device=dev)
+    zero_launches()
+    counter = KmerCounter(EngineConfig(k=6, canonical=True), device=dev)
+    dense = None
+    for s in range(0, MAIN_READS, STEP_READS):
+        table = counter.step(codes[s: s + STEP_READS], lens[s: s + STEP_READS])
+        c = table.counts.to(torch.int64)
+        dense = c if dense is None else dense + c
+    counter.check_exact()
+    auto8 = count_kmers_auto(codes, lens, 8, True)
+    torch.cuda.synchronize(dev)
+    launches = read_launches("10b: the dense route",
+                             {"wire_keys": 0, "segment_counts": 0})
+    # a dense step leaves its bin max on the device: no host sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counter.step(codes[:STEP_READS], lens[:STEP_READS])
+        synced = None
+    except RuntimeError as e:
+        synced = e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(synced is None, f"10b: a dense KmerCounter step syncs: {synced}")
+    live = dense > 0
+    same_rows(table.keys[live], dense[live],
+              count_kmers(codes, lens, 6, True).trim(),
+              "10b: KmerCounter k=6 (dense) vs the sort route")
+    auto = auto8.trim()
+    same_rows(auto.keys, auto.counts, count_kmers(codes, lens, 8, True).trim(),
+              "10b: count_kmers_auto k=8 (dense) vs the sort route")
+    times = {}
+    for k in DENSE_KS:
+        routes = {"dense": lambda: count_kmers_dense(codes, lens, k, True),
+                  "sort": lambda: count_kmers(codes, lens, k, True)}
+        turns = {"dense": [], "sort": []}
+        for name in ("dense", "sort", "sort", "dense", "dense", "sort"):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            int(routes[name]().n_unique)
+            turns[name].append(1e3 * (time.perf_counter() - t0))
+        # the first turn of each route warms it
+        times[k] = {name: min(ms[1:]) for name, ms in turns.items()}
+        # the histogram alone against torch.bincount (which syncs)
+        keys, valid = extract_windows_batch(codes, lens, k)
+        values = right_aligned_keys(canonicalize(keys, k), k)
+        nbins = 1 << 2 * k
+        hist = dense_histogram(values, valid, k)
+        lib = torch.bincount(torch.where(valid.reshape(-1), values.reshape(-1),
+                                         nbins), minlength=nbins + 1)[:nbins]
+        check(torch.equal(hist, lib), f"10b: k={k} histogram == bincount")
+        times[k]["histogram"] = time_cuda(
+            lambda: dense_histogram(values, valid, k), 5)
+        times[k]["bincount"] = time_cuda(lambda: torch.bincount(torch.where(
+            valid.reshape(-1), values.reshape(-1), nbins),
+            minlength=nbins + 1), 5)
+        del keys, valid, values, hist, lib
+        log(f"10b: k={k}, canonical, {MAIN_READS} x {READ_LEN} reads: "
+            f"dense {turns['dense']} ms, sort {turns['sort']} ms (in turns;"
+            " each includes the eager extraction); the histogram alone "
+            f"{times[k]['histogram']} ms, torch.bincount "
+            f"{times[k]['bincount']} ms")
+    log(f"10b: KmerCounter k=6 and count_kmers_auto k=8 equal the sort "
+        f"route; a dense step makes no host sync; launches {launches}")
+    return launches, times
+
+
+def graft_case(dev) -> dict:
+    """10c; returns the launches."""
+    import torch
+
+    from kmer_tpu_torch.graft_entry import entry
+
+    fn, args = entry(dev)
+    zero_launches()
+    got = fn(*args)
+    torch.cuda.synchronize(dev)
+    launches = read_launches("10c", {"wire_keys": 0, "segment_counts": 1})
+    cpu_fn, cpu_args = entry("cpu")
+    want = cpu_fn(*cpu_args).trim()
+    same_rows(got.trim().keys, got.trim().counts, want, "10c: graft entry")
+    log(f"10c: graft entry on {dev}: {got.distinct()} distinct, equal to "
+        f"its CPU result; launches {launches}")
+    return launches
+
+
+def long_sequence_case(dev, tmp: str, chr_distinct: int) -> dict:
+    """10d; returns the launches of the fast and the resumable run."""
+    import torch
+
+    from kmer_tpu_torch.bench import chr_codes
+    from kmer_tpu_torch.kernels.wire_keys import wire_keys, wire_keys_reference
+    from kmer_tpu_torch.pipeline import _upload
+    from kmer_tpu_torch.streaming import (
+        ROW_MAX, chunk_wire, count_long_sequence, iter_chunks_with_overlap)
+    from kmer_tpu_torch.utils.checkpoint import ResumableCount
+    from kmer_tpu_torch.utils.logging import StatsCounters
+
+    codes = chr_codes(CHR_BASES, SEED)
+    parts = [part for part, _ in
+             iter_chunks_with_overlap(codes, CHR_CHUNK, CHR_K)]
+    n_chunks = len(parts)
+    stats = StatsCounters()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    table = count_long_sequence(codes, CHR_K, True, chunk=CHR_CHUNK,
+                                stats=stats, device=dev)
+    distinct = table.distinct()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {"fast": read_launches(
+        "10d", {"wire_keys": n_chunks, "segment_counts": 1})}
+    check(distinct == chr_distinct,
+          f"10d: distinct {distinct} == phase 7's chr {chr_distinct}")
+    windows = CHR_BASES - CHR_K + 1
+    check(stats.kmers == windows, "10d: every window streamed")
+    check(table.total() == windows,
+          f"10d: the table's counts sum to the {windows} windows")
+    # the kernel against its plain version, every slot, at the rows the
+    # path lays out: a full chunk and the last, shorter one
+    for which, part in (("first", parts[0]), ("last", parts[-1])):
+        wire = _upload(chunk_wire(part, ROW_MAX, CHR_K), dev)
+        got = wire_keys(wire, ROW_MAX, CHR_K, True)
+        want = wire_keys_reference(wire, ROW_MAX, CHR_K, True)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"10d: wire_keys == its plain version on the {which} chunk's "
+              f"{wire.shape[0]} rows of {ROW_MAX} bases")
+        del wire, got, want
+    log(f"10d: count_long_sequence {CHR_BASES} bases, k={CHR_K} canonical, "
+        f"{n_chunks} chunks of {CHR_CHUNK}: {wall:.3f} s = "
+        f"{windows / wall:.1f} k-mers/s; distinct {distinct} == phase 7's, "
+        f"counts sum to the windows; wire_keys == its plain version on the "
+        f"first and last chunks; {table.capacity} slots; launches "
+        f"{launches['fast']}; peak device memory {peak} bytes")
+    del table
+
+    head = codes[:RESUME_BASES]
+    fast = count_long_sequence(head, CHR_K, True, chunk=CHR_CHUNK,
+                               device=dev).trim()
+    chunks = len(list(iter_chunks_with_overlap(head, CHR_CHUNK, CHR_K)))
+    half = chunks // 2
+    ck = os.path.join(tmp, "long_sequence.ckpt.npz")
+    zero_launches()
+    t0 = time.perf_counter()
+    first = ResumableCount(ck, device=dev)
+    count_long_sequence(head[: half * (CHR_CHUNK - CHR_K + 1) + CHR_K - 1],
+                        CHR_K, True, chunk=CHR_CHUNK, resumable=first,
+                        device=dev)
+    t1 = time.perf_counter()
+    first.checkpoint()
+    t_save = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rest = ResumableCount(ck, device=dev)
+    t_load = time.perf_counter() - t1
+    check(rest.shards_done == half, "10d: the checkpoint holds half the "
+          "chunks")
+    resumed = count_long_sequence(head, CHR_K, True, chunk=CHR_CHUNK,
+                                  resumable=rest, device=dev).trim()
+    wall = time.perf_counter() - t0
+    launches["resumable"] = read_launches(
+        "10d resumable", {"wire_keys": chunks, "segment_counts": chunks})
+    same_rows(resumed.keys, resumed.counts, fast,
+              "10d: resumed run vs the fast path")
+    log(f"10d: resumable run over {RESUME_BASES} bases ({chunks} chunks, "
+        f"checkpointed after {half}, resumed in a new ResumableCount): "
+        f"{wall:.3f} s, of which the checkpoint's write {t_save:.3f} s "
+        f"({os.path.getsize(ck)} bytes) and load {t_load:.3f} s; equal to "
+        f"the fast path; launches {launches['resumable']}")
+    return launches
+
+
+def read_stream_case(dev, tmp: str, reads, main_table, after3) -> dict:
+    """10e; returns the launches of the full run and the spill run."""
+    import torch
+
+    from kmer_tpu_torch.native import pack2bit_rows
+    from kmer_tpu_torch.streaming import count_read_stream
+    from kmer_tpu_torch.utils.logging import StatsCounters
+
+    lengths = np.full(STEP_READS, READ_LEN, np.int32)
+    batches = [(reads[s: s + STEP_READS], lengths[: min(STEP_READS,
+                                                        MAIN_READS - s)])
+               for s in range(0, MAIN_READS, STEP_READS)]
+    t0 = time.perf_counter()
+    for codes, _ in batches:
+        pack2bit_rows(codes)
+    log(f"10e: the host's pack2bit_rows of the {len(batches)} batches "
+        f"alone: {time.perf_counter() - t0:.3f} s")
+    launches = {}
+    for what, use, kw in (
+            ("full", batches, {}),
+            ("spills", batches[:3], {
+                "max_capacity": STREAM_BUDGET,
+                "spill_dir": os.path.join(tmp, "stream_runs")}),
+            ("spills in host memory", batches[:3], {
+                "max_capacity": STREAM_BUDGET})):
+        stats = StatsCounters()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        acc = count_read_stream(iter(use), K, True, stats=stats, device=dev,
+                                **kw)
+        host = acc.trim()
+        wall = time.perf_counter() - t0
+        launches[what] = read_launches(
+            f"10e {what}", {"wire_keys": len(use), "segment_counts": len(use)})
+        spills = "in host memory"
+        if what == "full":
+            same_rows(host.keys, host.counts, main_table,
+                      "10e: count_read_stream vs phase 4's table")
+        else:
+            if "spill_dir" in kw:
+                spills = sum(f.startswith("spill_")
+                             for f in os.listdir(kw["spill_dir"]))
+                check(spills > 0, "10e: the budget forced spills")
+            check(torch.equal(host.keys, after3[0])
+                  and torch.equal(host.counts, after3[1]),
+                  f"10e: {what}: equal to 10a's table after 3 steps")
+        log(f"10e: count_read_stream {what}, {len(use)} batches of "
+            f"{STEP_READS} reads: {wall:.3f} s (to the host table) = "
+            f"{stats.kmers / wall:.1f} k-mers/s; distinct {host.distinct()};"
+            f" spills {spills}; launches {launches[what]}; peak device "
+            f"memory {torch.cuda.max_memory_allocated(dev)} bytes")
+    return launches
+
+
+def serve_queries(table, n: int, rng) -> list[str]:
+    """n mixed EQ / PREFIX / PATTERN lines drawn from the table's rows."""
+    ids = rng.integers(0, len(table), n)
+    kmers = table.rows(ids)
+    out = []
+    for i, (_, kmer, qkmer) in enumerate(kmers):
+        kind = i % 3
+        if kind == 0:
+            out.append(f"EQ {kmer}")
+        elif kind == 1:
+            out.append(f"PREFIX {kmer[: int(rng.integers(1, 7))]}")
+        else:
+            out.append(f"PATTERN {qkmer}")
+    return out
+
+
+def ask_line(out, inp, cmd: str) -> dict:
+    """Send one command line to a server's ``out`` and read its answer
+    from ``inp``."""
+    out.write(cmd + "\n")
+    out.flush()
+    line = inp.readline()
+    check(bool(line), f"serve answered {cmd!r}")
+    return json.loads(line)
+
+
+def serve_case(dev, tmp: str) -> dict:
+    """10f; returns the launches of the 1,000 queries."""
+    import socket
+    import threading
+
+    import torch
+
+    from kmer_tpu_torch.api import KmerTable
+    from kmer_tpu_torch.cli import _make_serve_executor
+
+    path = os.path.join(tmp, "serve_rows.csv")
+    t0 = time.perf_counter()
+    run_cli(["datagen", "--rows", str(SERVE_ROWS), "--seed", "10",
+             "--out", path])
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = KmerTable.from_csv(path, device=dev)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table.create_index()
+    t_index = time.perf_counter() - t0
+    execute = _make_serve_executor(table)
+    queries = serve_queries(table, SERVE_QUERIES,
+                            np.random.default_rng(SEED + 10))
+    execute(queries[0])  # warm
+    zero_launches()
+    answers, lat = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        answers.append(execute(q))
+        lat.append(time.perf_counter() - t0)
+    launches = read_launches("10f", {"wire_keys": 0, "segment_counts": 0})
+    scans = {"EQ": table.scan_eq, "PREFIX": table.scan_prefix,
+             "PATTERN": table.scan_pattern}
+    for q, r in zip(queries, answers):
+        parts = q.split(None, 1)
+        want = scans[parts[0]](parts[1] if len(parts) > 1 else "")
+        check("rows" in r and r["rows"] == want.tolist(),
+              f"10f: {q!r} served == the scan on {dev}")
+    check(table._jcol().key.device.type == dev.type,
+          f"10f: the scanned column is on {dev}")
+    ms = 1e3 * np.asarray(lat)
+    log(f"10f: serve {SERVE_ROWS} rows on {dev}: datagen {t_gen:.3f} s, "
+        f"load {t_load:.3f} s, index {t_index:.3f} s; {SERVE_QUERIES} "
+        f"mixed EQ/PREFIX/PATTERN queries p50 {np.percentile(ms, 50):.4f} "
+        f"ms, p99 {np.percentile(ms, 99):.4f} ms, max {ms.max():.4f} ms, "
+        f"{sum(len(r['rows']) for r in answers)} rows, each equal to the "
+        f"scan on {dev}; launches {launches}")
+    del table, execute
+
+    # a --wal server on phase 9's 100,000 rows: acks, kill -9, restart
+    # with --tcp; its clients answer as the killed server's stdin did
+    rows_csv = os.path.join(tmp, "sql_rows.csv")
+    wal = os.path.join(tmp, "serve.wal")
+    argv = [sys.executable, "-m", "kmer_tpu_torch", "serve", "--input",
+            rows_csv, "--wal", wal, "--device", str(dev)]
+    mutations = ["INSERT acgtacgt,acgtacgt,acgtacgt", "INSERT tttt,tttt,tttt",
+                 "DELETE tttt", "INSERT ACGTTGCA,acgttgca,nnnn",
+                 "DELETE acga"]
+    probe = ["COUNT", "DISTINCT", "EQ acgtacgt", "EQ tttt", "EQ acgttgca",
+             "EQ acga", "PREFIX acgt", "PATTERN angr", "GROUP 5"]
+
+    def start(extra):
+        p = subprocess.Popen(argv + extra, stdin=subprocess.PIPE,
+                             stdout=subprocess.PIPE, text=True, cwd=ROOT)
+        watchdog = threading.Timer(300, p.kill)
+        watchdog.start()
+        return p, watchdog
+
+    def stop(p, watchdog):
+        watchdog.cancel()
+        p.kill()
+        p.wait(timeout=60)
+
+    t0 = time.perf_counter()
+    p, dog = start([])
+    try:
+        ready = json.loads(p.stdout.readline())
+        acks = [ask_line(p.stdin, p.stdout, m) for m in mutations]
+        check(all("error" not in a for a in acks), f"10f: acks {acks}")
+        want = [ask_line(p.stdin, p.stdout, q) for q in probe]
+    finally:
+        stop(p, dog)  # SIGKILL after the acks
+    t_wal = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p, dog = start(["--tcp", "0"])
+    try:
+        ready2 = json.loads(p.stdout.readline())
+        check(ready2["ready"] == want[0]["value"],
+              f"10f: the replayed table holds every acked mutation "
+              f"({ready['ready']} rows -> {ready2['ready']})")
+        errs, got = [], []
+
+        def client():
+            try:
+                with socket.create_connection(
+                        ("127.0.0.1", ready2["tcp"]), timeout=120) as s:
+                    f = s.makefile("rw")
+                    for _ in range(3):
+                        got.append([ask_line(f, f, q) for q in probe])
+            except Exception as e:  # raised again below
+                errs.append(e)
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=240)
+        check(not errs and not any(t.is_alive() for t in threads),
+              f"10f: every TCP client finished ({errs})")
+        check(len(got) == 3 * SERVE_CLIENTS and all(g == want for g in got),
+              "10f: the TCP clients' answers equal the stdin answers")
+    finally:
+        stop(p, dog)
+    log(f"10f: --wal server on {ready['ready']} rows: {len(mutations)} "
+        f"acked mutations, kill -9 ({t_wal:.3f} s with start-up); restarted "
+        f"with --tcp, replayed {ready2['ready']} rows, {SERVE_CLIENTS} "
+        f"concurrent clients x 3 x {len(probe)} commands equal to the "
+        f"stdin answers ({time.perf_counter() - t0:.3f} s with start-up)")
+    return launches
+
+
+def engine_phase(dev, tmp: str, main_table, chr_distinct: int
+                 ) -> tuple[dict, dict]:
+    """Phase 10; returns the count path's launches by case and 10b's
+    times by route."""
+    from kmer_tpu_torch.ops.extract import simulate_reads
+
+    reads = simulate_reads(MAIN_READS, READ_LEN, seed=SEED)  # phase 4's
+    launches = {}
+    t0 = time.perf_counter()
+    launches["10a"], after3 = counter_case(dev, reads, main_table)
+    launches["10b"], dense_times = dense_case(dev, reads)
+    launches["10c"] = graft_case(dev)
+    for what, n in long_sequence_case(dev, tmp, chr_distinct).items():
+        launches[f"10d {what}"] = n
+    for what, n in read_stream_case(dev, tmp, reads, main_table,
+                                    after3).items():
+        launches[f"10e {what}"] = n
+    del reads
+    log(f"10a-e in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["10f"] = serve_case(dev, tmp)
+    log(f"10f in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "kmer_tpu_torch", "selftest",
+                          "--device", str(dev)], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300)
+    check(out.returncode == 0 and out.stdout.startswith("selftest ok"),
+          f"10g: selftest --device {dev} ({out.stdout!r} {out.stderr[-500:]!r})")
+    log(f"10g: {out.stdout.strip()} ({time.perf_counter() - t0:.3f} s with "
+        "start-up)")
+    return launches, dense_times
+
+
 def main() -> int:
     import torch
 
@@ -1202,8 +1712,8 @@ def main() -> int:
         worst = probe_edges(dev)
         next(e for e in entries if e["name"] == "segment_copy")[
             "overlap_worst_case"] = worst
-        bench_launches = bench_on_card(dev, main_table.distinct(),
-                                       cov_table.distinct())
+        bench_launches, chr_distinct = bench_on_card(
+            dev, main_table.distinct(), cov_table.distinct())
         t0 = time.perf_counter()
         fold_launches = fold_phase(dev, tmp, main_fastq, main_table,
                                    cov_fastq, cov_table)
@@ -1212,14 +1722,23 @@ def main() -> int:
         sql_launches = sql_phase(dev, tmp, card)
         log(f"phase 9: the SQL surface in {time.perf_counter() - t0:.1f} s "
             f"({card})")
-    log(f"chip_smoke: phases 1-9 passed in {time.perf_counter() - t_start:.1f}"
-        " s")
+        t0 = time.perf_counter()
+        engine_launches, dense_times = engine_phase(dev, tmp, main_table,
+                                                    chr_distinct)
+        log(f"phase 10: the one-device engine in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        print(json.dumps({"phase10_dense_vs_sort_ms": dense_times}),
+              flush=True)
+    log(f"chip_smoke: phases 1-10 passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     def by_path(name):
         return {"single_shot (phase 4)": launches[name],
                 "bench (phase 7)": bench_launches[name],
                 **{f"fold ({c})": n[name] for c, n in fold_launches.items()},
-                **{f"sql ({c})": n[name] for c, n in sql_launches.items()}}
+                **{f"sql ({c})": n[name] for c, n in sql_launches.items()},
+                **{f"engine ({c})": n[name]
+                   for c, n in engine_launches.items()}}
 
     main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{

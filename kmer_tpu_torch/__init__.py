@@ -22,10 +22,20 @@ Ported so far:
   ``parity``;
 * the bench's counting, query and pattern modes (``bench``, ``python -m
   kmer_tpu_torch bench``) and the Pallas probes of ``scripts/``
-  (``python -m kmer_tpu_torch.probes``).
+  (``python -m kmer_tpu_torch.probes``);
+* the rest of the one-device engine: ``EngineConfig`` (``config``),
+  ``KmerCounter`` (``models``) with the dense small-k route
+  (``ops.dense_count``, ``ops.count_kmers_auto``) and its graft entry
+  (``graft_entry``), ``count_long_sequence`` and ``count_read_stream``
+  (``streaming``) with ``ResumableCount``, and the CLI's ``serve`` (WAL,
+  TCP) and ``selftest``.
+
+Not yet: the multi-device engine (``kmer_tpu.parallel``'s sharded
+count, stream and index, ``distcount``, ``KmerCounter.sharded_step``).
 """
 
 from .api import KmerTable  # noqa: F401
+from .config import EngineConfig  # noqa: F401
 from .errors import (  # noqa: F401
     InvalidDnaSequenceError,
     InvalidKmerLengthError,
@@ -44,6 +54,7 @@ from .index import (  # noqa: F401
     KmerIndex,
     SearchFence,
 )
+from .models import KmerCounter  # noqa: F401
 from .joins import (  # noqa: F401
     join_eq,
     join_pattern,
@@ -74,10 +85,12 @@ from .ops.wide import WideCounts  # noqa: F401
 from .packed import KmerColumn, PackedKmers  # noqa: F401
 from .parity import run_parity, run_scale_parity  # noqa: F401
 from .pipeline import count_batches_pipelined, count_file  # noqa: F401
+from .streaming import count_long_sequence, count_read_stream  # noqa: F401
 from .types import Dna, Kmer, Qkmer  # noqa: F401
 from .utils.checkpoint import (  # noqa: F401
     load_index,
     load_table,
+    ResumableCount,
     save_index,
     save_table,
 )

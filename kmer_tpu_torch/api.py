@@ -123,22 +123,33 @@ class KmerTable:
     def insert_rows(self, rows) -> int:
         """INSERT: validate every row first (the type constructors raise
         the reference's errors), then append; a bad row inserts nothing."""
+        return self.append_rows(self.parse_rows(rows))
+
+    @staticmethod
+    def parse_rows(rows) -> tuple[list[Dna], PackedKmers, list[Qkmer]]:
+        """Validate (dna, kmer, qkmer) string rows into columns, touching
+        no table: a bad row raises the reference's error."""
         rows = list(rows)
-        dna = [Dna(r[0]) for r in rows]
-        kmer = PackedKmers.from_strings([r[1] for r in rows])
-        qkmer = [Qkmer(r[2]) for r in rows]
+        return ([Dna(r[0]) for r in rows],
+                PackedKmers.from_strings([r[1] for r in rows]),
+                [Qkmer(r[2]) for r in rows])
+
+    def append_rows(self, parsed: tuple[list[Dna], PackedKmers, list[Qkmer]]
+                    ) -> int:
+        """Append columns made by ``parse_rows``; returns the rows added."""
+        dna, kmer, qkmer = parsed
         self.dna.extend(dna)
         self.kmer = concat([self.kmer, kmer])
         self.qkmer.extend(qkmer)
         if self._deleted is not None:
             self._deleted = np.concatenate(
-                [self._deleted, np.zeros(len(rows), bool)])
+                [self._deleted, np.zeros(len(dna), bool)])
         self._device_col = None
         # a vacuum followed by inserts can restore the old n_slots, so the
         # digests' size is no staleness test
         self._dna_key = None
         self._maybe_reindex()
-        return len(rows)
+        return len(dna)
 
     def delete_ids(self, ids) -> int:
         """Tombstone the given row ids; returns the rows newly deleted."""
@@ -166,15 +177,20 @@ class KmerTable:
 
     def delete_where_dna_eq(self, d) -> int:
         """DELETE FROM t WHERE dna = d (kmer-test.sql:26)."""
+        return self.delete_ids(self.where_dna_eq(d))
+
+    def where_dna_eq(self, d) -> np.ndarray:
+        """Live row ids whose dna equals ``d`` (the rows DELETEDNA
+        removes)."""
         probe = Dna(d)
         key = np.int64(hash(probe.codes.tobytes()))
         cand = np.flatnonzero(self._dna_keys() == key)
         if self._deleted is not None and cand.size:
             cand = cand[~self._deleted[cand]]
-        # verify each candidate: a digest collision must not delete
-        hits = [int(i) for i in cand
-                if np.array_equal(self.dna[i].codes, probe.codes)]
-        return self.delete_ids(np.asarray(hits, np.int64))
+        # verify each candidate: a digest collision must not match
+        return np.asarray([int(i) for i in cand
+                           if np.array_equal(self.dna[i].codes, probe.codes)],
+                          np.int64)
 
     def vacuum(self) -> None:
         """Drop tombstoned rows and rebuild the index; row ids are

@@ -12,10 +12,14 @@
   python -m kmer_tpu_torch bench   [--mode fused|stream|chr|pattern]
                                    [--queries] [--reads N] [-k 21]
                                    [--trace DIR] [--device cuda]
+  python -m kmer_tpu_torch serve   --input data.csv [--no-index]
+                                   [--wal PATH] [--tcp PORT] [--device cuda]
+  python -m kmer_tpu_torch selftest [--device cuda]
 
 Each subcommand takes ``kmer_tpu``'s flags and prints the same output;
 those that touch a device also take ``--device`` (default cuda, which
-raises without a card).  ``count`` prints one ``kmer<TAB>count`` line per
+raises without a card).  ``serve`` answers one JSON line a command (see
+``_cmd_serve``).  ``count`` prints one ``kmer<TAB>count`` line per
 group on stdout, by descending count and then ascending key, and a
 ``# N distinct, T total`` line on stderr; on a CSV it groups the kmer
 column, or with ``--from-dna-column`` counts the k-mers of the dna
@@ -29,7 +33,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
+import time
 
 import numpy as np
 
@@ -166,6 +172,272 @@ def _cmd_parity(args) -> int:
     return 0 if ok else 1
 
 
+def _replay_wal(table, path: str) -> tuple[int, int]:
+    """Re-apply acknowledged mutations from a write-ahead log written by
+    either package.
+
+    A torn final line (kill mid-write) stops the replay: a mutation is
+    acknowledged only after its fsynced log entry, so a torn line was
+    never acknowledged and dropping it is correct.  Returns (mutations
+    replayed, byte offset past the last good entry); the caller truncates
+    the file there before appending, or the next entry would join the
+    torn line and end every later replay at it.
+    """
+    n = 0
+    good_end = 0
+    with open(path, "rb") as f:
+        for raw in f:
+            line = raw.decode("utf-8", "replace").strip()
+            if not line:
+                good_end += len(raw)
+                continue
+            if not raw.endswith(b"\n"):
+                break  # torn final line (no newline: its fsync never ran)
+            try:
+                e = json.loads(line)
+            except json.JSONDecodeError:
+                break
+            op = e.get("op")
+            if op == "insert":
+                table.insert_rows([tuple(e["row"])])
+            elif op == "delete_kmer":
+                table.delete_where_kmer_eq(e["q"])
+            elif op == "delete_dna":
+                table.delete_where_dna_eq(e["q"])
+            n += 1
+            good_end += len(raw)
+    return n, good_end
+
+
+class _Wal:
+    """The serve write-ahead log: ``append`` writes one JSON line and
+    fsyncs it.  A failed append truncates the file back to where it
+    began, so no partial line is left for the next entry to join."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "ab")
+
+    def append(self, entry: dict) -> None:
+        start = self._f.tell()
+        try:
+            self._f.write((json.dumps(entry) + "\n").encode())
+            self._f.flush()
+            os.fsync(self._f.fileno())
+        except BaseException:
+            try:
+                self._f.truncate(start)
+            except OSError:
+                pass
+            raise
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def _cmd_serve(args) -> int:
+    """Resident query server over a loaded table (``kmer_tpu``'s ``serve``).
+
+    Loads the CSV once on ``--device``, builds the index once (unless
+    ``--no-index``), then answers one command a line from stdin, or from
+    many clients with ``--tcp PORT``:
+
+        EQ <kmer> | PREFIX <kmer> | PATTERN <qkmer> | COUNT | DISTINCT
+        | GROUP <n>  (top-n kmer counts)
+        | INSERT <dna>,<kmer>,<qkmer>  (validating; bad rows insert nothing)
+        | DELETE <kmer>      (DELETE WHERE kmer = x)
+        | DELETEDNA <dna>    (DELETE WHERE dna = x, kmer-test.sql:26)
+        | QUIT
+
+    Each answer is one JSON line, byte for byte ``kmer_tpu``'s.  With
+    ``--wal PATH`` a mutation is validated, then its log entry is written
+    and fsynced, then it is applied and acknowledged; a restarted server
+    replays the log (``kmer_tpu``'s WAL format, so either package replays
+    the other's).  ``--tcp`` serves each connection on its own thread,
+    every command under one table lock; the ready line carries the port.
+    """
+    from .api import KmerTable
+    from .utils.logging import get_logger
+
+    log = get_logger()
+    table = KmerTable.from_csv(args.input, device=args.device)
+    wal = None
+    if args.wal:
+        if os.path.exists(args.wal):
+            n, good_end = _replay_wal(table, args.wal)
+            if good_end < os.path.getsize(args.wal):
+                # drop the torn (never acknowledged) tail before appending
+                with open(args.wal, "r+b") as tf:
+                    tf.truncate(good_end)
+                log.info("truncated torn WAL tail at byte %d", good_end)
+            log.info("replayed %d WAL mutations from %s", n, args.wal)
+        wal = _Wal(args.wal)
+    try:
+        if not args.no_index:
+            table.create_index()
+        log.info("serving %d rows from %s (index=%s, device=%s)", len(table),
+                 args.input, not args.no_index, table.device)
+        execute = _make_serve_executor(
+            table, wal.append if wal is not None else None)
+        if args.tcp is not None:
+            _serve_tcp(execute, len(table), args.tcp)
+            return 0
+        print(json.dumps({"ready": len(table)}), flush=True)
+        for line in sys.stdin:
+            r = execute(line)
+            if r == "QUIT":
+                break
+            if r is not None:
+                print(json.dumps(r), flush=True)
+        return 0
+    finally:
+        if wal is not None:
+            wal.close()
+
+
+def _serve_tcp(execute, n_rows: int, port: int) -> None:
+    """Thread-per-connection serving on 127.0.0.1:``port`` (0: a free
+    port, named in the ready line) until interrupted."""
+    import socketserver
+
+    class _Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            for raw in self.rfile:
+                r = execute(raw.decode("utf-8", "replace"))
+                if r == "QUIT":
+                    break
+                if r is None:
+                    continue
+                self.wfile.write((json.dumps(r) + "\n").encode())
+                self.wfile.flush()
+
+    class _Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    with _Server(("127.0.0.1", port), _Handler) as srv:
+        print(json.dumps({"ready": n_rows, "tcp": srv.server_address[1]}),
+              flush=True)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+
+
+def _make_serve_executor(table, durable=None):
+    """One-command executor shared by the stdin and TCP servers.
+
+    Every command runs under one lock (KmerTable mutation is not
+    thread-safe, and a mutation must be atomic with its log entry), with
+    the table's device current, so a handler thread works on the table's
+    card whatever its own current device.  A mutation is write-ahead:
+    validated (INSERT parses its row; DELETE and DELETEDNA find their
+    rows), then ``durable(entry)`` logs it, then it is applied.  If the
+    log write raises, the answer is the error and the table is unchanged.
+    """
+    import threading
+
+    import torch
+
+    lock = threading.RLock()
+    state = {"group": None}
+
+    def on_device():
+        if table.device.type == "cuda":
+            return torch.cuda.device(table.device)
+        return contextlib.nullcontext()
+
+    def mutate(entry: dict, apply) -> int:
+        if durable is not None:
+            durable(entry)
+        state["group"] = None  # aggregates are stale
+        return apply()
+
+    def execute(line: str):
+        parts = line.strip().split(None, 1)
+        if not parts:
+            return None
+        cmd = parts[0].upper()
+        arg = parts[1] if len(parts) > 1 else ""
+        if cmd == "QUIT":
+            return "QUIT"
+        try:
+            with lock, on_device():
+                if cmd == "EQ":
+                    return {"rows": [int(i) for i in table.where_eq(arg)]}
+                elif cmd == "PREFIX":
+                    return {"rows": [int(i) for i in table.where_prefix(arg)]}
+                elif cmd == "PATTERN":
+                    return {"rows": [int(i)
+                                     for i in table.where_pattern(arg)]}
+                elif cmd == "COUNT":
+                    return {"value": table.count()}
+                elif cmd == "DISTINCT":
+                    return {"value": table.distinct_kmers()}
+                elif cmd == "INSERT":
+                    parts3 = arg.split(",")
+                    if len(parts3) != 3:
+                        return {"error": "INSERT expects dna,kmer,qkmer"}
+                    row = tuple(p.strip() for p in parts3)
+                    parsed = table.parse_rows([row])
+                    return {"inserted": mutate(
+                        {"op": "insert", "row": list(row)},
+                        lambda: table.append_rows(parsed))}
+                elif cmd == "DELETE":
+                    ids = table.where_eq(arg.strip())
+                    return {"deleted": mutate(
+                        {"op": "delete_kmer", "q": arg.strip()},
+                        lambda: table.delete_ids(ids))}
+                elif cmd == "DELETEDNA":
+                    ids = table.where_dna_eq(arg.strip())
+                    return {"deleted": mutate(
+                        {"op": "delete_dna", "q": arg.strip()},
+                        lambda: table.delete_ids(ids))}
+                elif cmd == "GROUP":
+                    if state["group"] is None:
+                        state["group"] = sorted(
+                            table.group_by_kmer().to_dict().items(),
+                            key=lambda kv: (-kv[1], kv[0]),
+                        )
+                    return {"groups": state["group"][: int(arg or 10)]}
+                else:
+                    return {"error": f"unknown command {cmd!r}"}
+        except Exception as e:  # bad literals etc. must not kill the server
+            return {"error": str(e)}
+
+    return execute
+
+
+def _cmd_selftest(args) -> int:
+    """Quick end-to-end smoke of every subsystem on small data, on
+    ``--device`` (``kmer_tpu``'s checks)."""
+    from . import (
+        KmerIndex,
+        PackedKmers,
+        contains,
+        count_dna,
+        equals,
+        generate_kmers,
+        starts_with_op,
+    )
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            raise RuntimeError(f"selftest failed: {what}")
+
+    t0 = time.time()
+    check([str(k) for k in generate_kmers("ACGTACGT", 3)] == [
+        "acg", "cgt", "gta", "tac", "acg", "cgt"], "generate_kmers")
+    check(count_dna("ACGTACGT", 4, device=args.device).to_dict() == {
+        "acgt": 2, "cgta": 1, "gtac": 1, "tacg": 1}, "count_dna")
+    check(equals("ACGT", "acgt") and starts_with_op("acgt", "ac"),
+          "equals, starts_with")
+    check(contains("RCGT", "ACGT") and not contains("U", "A"), "contains")
+    idx = KmerIndex.build(PackedKmers.from_strings(["acga", "acgt", "acga"]))
+    check(idx.search_eq("acga").tolist() == [0, 2], "KmerIndex.search_eq")
+    print(f"selftest ok in {time.time() - t0:.2f}s")
+    return 0
+
+
 def _cmd_bench(args) -> int:
     from . import bench
 
@@ -173,11 +445,11 @@ def _cmd_bench(args) -> int:
         raise NotImplementedError(
             "the shq bench mode (sharded index serving) comes with the "
             "multi-device port (ROADMAP.md §1 item 6)")
-    if args.no_pallas:
-        raise NotImplementedError(
-            "--no-pallas (kmer_tpu's EngineConfig.use_pallas) is not "
-            "ported: on a CUDA device the count always launches the "
-            "segment-count kernel (ROADMAP.md §1 item 2, config)")
+    from .config import EngineConfig
+
+    EngineConfig(k=args.k, canonical=not args.no_canonical,
+                 read_len=args.read_len,
+                 use_pallas=not args.no_pallas).activate()
     trace = contextlib.nullcontext()
     if args.trace:
         from torch.profiler import (
@@ -323,6 +595,29 @@ def main(argv=None) -> int:
                    "(realistic duplication) instead of uniform-random")
     _device_flag(b)
     b.set_defaults(fn=_cmd_bench)
+
+    s = sub.add_parser("selftest", help="end-to-end smoke test")
+    _device_flag(s)
+    s.set_defaults(fn=_cmd_selftest)
+
+    sv = sub.add_parser("serve", help="resident query server over stdin")
+    sv.add_argument("--input", required=True, help="CSV table to serve")
+    sv.add_argument("--no-index", action="store_true",
+                    help="serve via seq scans instead of the sorted index")
+    sv.add_argument(
+        "--wal", default=None, metavar="PATH",
+        help="write-ahead log: each mutation is logged and fsynced before "
+        "it is applied and acknowledged, and replayed on restart, so a "
+        "killed server loses no acknowledged INSERT/DELETE",
+    )
+    sv.add_argument(
+        "--tcp", type=int, default=None, metavar="PORT",
+        help="serve many concurrent clients over TCP on 127.0.0.1:PORT "
+        "(0 = a free port, printed in the ready line) instead of the "
+        "single-client stdin loop",
+    )
+    _device_flag(sv)
+    sv.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)
     if getattr(args, "device", None) is not None:

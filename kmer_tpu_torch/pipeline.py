@@ -168,11 +168,20 @@ def column_batch_feed(seqs, k: int, batch: int | None = None,
         width += 16
     if not batch:
         batch = auto_batch(width, k)
-    offs = np.zeros(lens.size + 1, np.int64)
-    np.cumsum(lens, out=offs[1:])
     stream = np.concatenate(enc) if enc else np.zeros(0, np.uint8)
-    words, plens = rows_packed(stream, offs, width, k)
+    words, plens = split_rows(stream, lens, width, k)
     return _padded_batches(words, plens, batch), batch, width
+
+
+def split_rows(stream: np.ndarray, lens, width: int, k: int
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Sequences laid end to end in ``stream``, ``lens`` bases each ->
+    ``rows_packed``'s (words, row lengths): rows of at most ``width``
+    bases that overlap by k-1, so every window is valid in exactly one
+    row."""
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return rows_packed(stream, offs, width, k)
 
 
 def _combine(words: np.ndarray, lengths) -> np.ndarray:

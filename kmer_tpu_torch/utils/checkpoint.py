@@ -1,5 +1,6 @@
 """Count-table and index snapshots in ``kmer_tpu``'s npz layout, so a
-file saved by either package loads in the other (counterpart of
+file saved by either package loads in the other, and the checkpointed
+shard count ``ResumableCount`` (counterpart of
 ``kmer_tpu/utils/checkpoint.py``).
 
 Table layout: ``hi``/``lo`` uint32, ``length`` int32, ``counts`` int64 of
@@ -15,7 +16,9 @@ import os
 import tempfile
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..index import KmerIndex
 from ..ops.count import CountTable
 
@@ -87,3 +90,49 @@ def load_index(path: str) -> tuple[KmerIndex, dict]:
         idx = KmerIndex(sorted_keys=z["sorted_keys"],
                         sorted_lens=z["sorted_lens"], row_ids=z["row_ids"])
     return idx, meta
+
+
+class ResumableCount:
+    """Checkpointed streaming count over an ordered list of input shards.
+
+    Progress is (shards_done, the accumulated table).  On restart the
+    completed shards are skipped and counting resumes from the snapshot;
+    merges are associative, so the result is exact.  Counts accumulate
+    in the 64-bit ``WideAccumulator`` on ``device``.  Snapshots are
+    ``save_wide`` files with ``shards_done`` in their meta, the layout
+    ``kmer_tpu``'s ``ResumableCount`` writes, so either package resumes
+    the other's.
+    """
+
+    def __init__(self, ckpt_path: str, capacity: int = 1 << 16, *,
+                 device: str | torch.device):
+        from ..ops.wide import WideAccumulator
+
+        self.ckpt_path = ckpt_path
+        self._acc = WideAccumulator(capacity, device=resolve_device(device))
+        self.shards_done = 0
+        if os.path.exists(ckpt_path):
+            from ..parallel.streaming import load_wide
+
+            acc, meta = load_wide(ckpt_path)
+            self._acc.seed(acc)
+            self.shards_done = int(meta.get("shards_done", 0))
+
+    @property
+    def table(self):
+        """The accumulated WideCounts so far (None before any update)."""
+        return None if self._acc.empty else self._acc.result()
+
+    def should_process(self, shard_idx: int) -> bool:
+        return shard_idx >= self.shards_done
+
+    def update(self, shard_idx: int, shard_table: CountTable) -> None:
+        self._acc.add(shard_table)
+        self.shards_done = shard_idx + 1
+
+    def checkpoint(self) -> None:
+        if not self._acc.empty:
+            from ..parallel.streaming import save_wide
+
+            save_wide(self._acc.result(), self.ckpt_path,
+                      {"shards_done": self.shards_done})

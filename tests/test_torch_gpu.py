@@ -10,6 +10,8 @@ so it runs on a machine with a card and no JAX:
 Every comparison is exact: the results are integers or 32-bit words.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -545,3 +547,126 @@ def test_query_and_pattern_bench_on_cuda():
     p = run_pattern_bench(n_keys=1 << 16, n_queries=1 << 12, device="cuda")
     assert q["detail"]["device"] == p["detail"]["device"] != "cpu"
     assert q["value"] > 0 and p["detail"]["prefix12_hits"] >= 1 << 12
+
+
+def _launches():
+    return wire_keys.launches, segment_counts.launches
+
+
+def _same_trimmed(got, want):
+    g, w = got.trim(), want.trim()
+    for a, b in zip(g.to_numpy(), w.to_numpy()):
+        np.testing.assert_array_equal(a, b)
+    assert got.distinct() == want.distinct()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, kernel_launches", [(6, 0), (21, 1)])
+def test_kmer_counter_on_cuda_equals_cpu(k, kernel_launches):
+    """The dense route (k = 6) launches no segment-count kernel; the sort
+    route (k = 21) launches it once a step."""
+    from kmer_tpu_torch.config import EngineConfig
+    from kmer_tpu_torch.models import KmerCounter
+    from kmer_tpu_torch.ops.extract import simulate_reads
+
+    dev = _cuda()
+    reads = simulate_reads(2000, 150, seed=k)
+    reads[0] = 3
+    lengths = np.random.default_rng(k).integers(0, 151, 2000).astype(
+        np.int32)
+    cfg = EngineConfig(k=k, canonical=True)
+    before = _launches()
+    counter = KmerCounter(cfg, device=dev)
+    got = counter.step(reads, lengths)
+    assert got.keys.is_cuda
+    assert _launches() == (before[0], before[1] + kernel_launches)
+    counter.check_exact()
+    _same_trimmed(got, KmerCounter(cfg, device="cpu").step(reads, lengths))
+
+
+@pytest.mark.gpu
+def test_graft_entry_on_cuda_equals_cpu():
+    from kmer_tpu_torch.graft_entry import entry
+
+    _cuda()
+    fn, args = entry("cuda")
+    before = segment_counts.launches
+    got = fn(*args)
+    assert segment_counts.launches == before + 1
+    cpu_fn, cpu_args = entry("cpu")
+    _same_trimmed(got, cpu_fn(*cpu_args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, chunk", [(31, 1 << 17), (9, 4096), (32, 1 << 20)])
+def test_long_sequence_on_cuda_equals_cpu(k, chunk, tmp_path):
+    """The fast path: one wire_keys launch a chunk, one segment count; the
+    resumable path: one of each a chunk."""
+    from kmer_tpu_torch.streaming import (
+        count_long_sequence, iter_chunks_with_overlap)
+    from kmer_tpu_torch.utils.checkpoint import ResumableCount
+
+    dev = _cuda()
+    codes = np.random.default_rng(k).integers(0, 4, 300_000, np.uint8)
+    codes[1000:1100] = 3
+    n_chunks = len(list(iter_chunks_with_overlap(codes, chunk, k)))
+    before = _launches()
+    got = count_long_sequence(codes, k, True, chunk=chunk, device=dev)
+    assert _launches() == (before[0] + n_chunks, before[1] + 1)
+    want = count_long_sequence(codes, k, True, chunk=chunk, device="cpu")
+    _same_trimmed(got, want)
+    rc = ResumableCount(str(tmp_path / "ck.npz"), device=dev)
+    before = _launches()
+    resumed = count_long_sequence(codes, k, True, chunk=chunk, resumable=rc,
+                                  device=dev)
+    assert _launches() == (before[0] + n_chunks, before[1] + n_chunks)
+    assert resumed.to_dict() == want.to_dict()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [None, 1 << 16])
+def test_read_stream_on_cuda_equals_cpu(budget, tmp_path):
+    """Six batches of 33,280 slots; a 2^16-slot budget forces spills."""
+    from kmer_tpu_torch.streaming import count_read_stream
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    batches = [(rng.integers(0, 4, (256, 150), np.uint8),
+                rng.integers(0, 151, 256).astype(np.int32))
+               for _ in range(6)]
+    kw = dict(capacity=1 << 10, max_capacity=budget,
+              spill_dir=str(tmp_path / "runs") if budget else None)
+    before = _launches()
+    got = count_read_stream(iter(batches), 21, True, **kw, device=dev)
+    assert _launches() == (before[0] + 6, before[1] + 6)
+    want = count_read_stream(iter(batches), 21, True, capacity=1 << 10,
+                             device="cpu")
+    _same_trimmed(got, want)
+    if budget:
+        assert os.listdir(tmp_path / "runs")
+
+
+@pytest.mark.gpu
+def test_serve_on_cuda_equals_cpu(tmp_path, monkeypatch, capsys):
+    """``serve --device cuda`` over stdin answers as ``--device cpu``;
+    the table's column and GROUP BY run on the card."""
+    import io
+
+    from kmer_tpu_torch.cli import main
+    from kmer_tpu_torch.io.datagen import rows_to_csv
+
+    _cuda()
+    path = str(tmp_path / "rows.csv")
+    rows_to_csv(_sql_rows(3000, 31), path)
+    script = ("EQ acga\nPREFIX ac\nPATTERN angry\nCOUNT\nDISTINCT\nGROUP 5\n"
+              "INSERT acgt,acga,nn\nDELETE tttt\nDELETEDNA acgt\nEQ acga\n"
+              "GROUP 5\nEQ not-dna\nQUIT\n")
+    out = []
+    for dev in ("cuda", "cpu"):
+        for flags in ([], ["--no-index"]):
+            monkeypatch.setattr("sys.stdin", io.StringIO(script))
+            assert main(["serve", "--input", path, "--device", dev,
+                         *flags]) == 0
+            out.append(capsys.readouterr().out)
+    assert out[0] == out[1] == out[2] == out[3]
+    assert out[0].count("\n") == 13
