@@ -50,8 +50,8 @@ Phases, each of which must pass or the script exits nonzero:
    rise;
 8. the streaming fold of ``count_file``, each case with the wire-key and
    segment-count kernels' counts set to 0 before it and required to
-   rise: (a) a sequencing run, 10M x
-   150 bp reads at 30x over a 50 Mbp genome (a 3.1 GB FASTQ), routed
+   rise: (a) a sequencing run, 5M x
+   150 bp reads at 15x over a 50 Mbp genome (a 1.57 GB FASTQ), routed
    automatically to the fold, growing from 2^24 slots, exact against an
    oracle built from the genome; (b) phase 4's file through the fold
    (~130M live rows, 2^28 slots), equal to phase 4's table; (c) phase 5's
@@ -94,7 +94,28 @@ Phases, each of which must pass or the script exits nonzero:
    card; then at phase 9's 100,000 rows a ``--wal`` server killed with -9
    after its acks and restarted with ``--tcp``, whose 4 concurrent
    clients must answer as the killed server's stdin did; (g) ``python -m
-   kmer_tpu_torch selftest --device cuda``.
+   kmer_tpu_torch selftest --device cuda``;
+11. multi-device on the card, each case with the count path's launch
+   counts set to 0 before it (in every rank) and read after: (a)
+   ``python -m kmer_tpu_torch distcount --backend nccl`` as one rank over
+   phase 4's FASTQ, its rank file equal to phase 4's table; then
+   DISTCOUNT_r05.json's durability case (1M x 150 bp reads of a 5 Mbp
+   genome, batches of 65,536 reads, a checkpoint every 4): a straight run
+   equal to the genome oracle, and a run killed with -9 once its first
+   checkpoint is on disk and resumed, its rank file equal to the straight
+   run's bit for bit; (b) 4 ``distcount`` ranks on the
+   gloo backend sharing the card, mesh (4,1), over 8a's reads split into
+   4 record-aligned shards, every rank launching both kernels, and
+   ``merge_rank_files`` of their files equal to 8a's genome oracle; each
+   rank's wall, k-mers/s, peak memory and merge efficiency printed; (c)
+   ``count_kmers_sharded`` at (2,2) over 4 gloo ranks (a
+   ``parallel.launch.World``), both merges and a forced overflow, each
+   rank's table equal to the one-device count (its hash range of it for
+   the partition); (d) ``KmerCounter.count_sharded`` there, and
+   ``dryrun_multichip(4)`` on the card; (e) ``run_sharded_query_bench``
+   (``bench --mode shq``) over the 4 ranks at 2^22 keys, its counts
+   equal to a one-device ``DeviceIndex``'s.  The collectives that gloo
+   staged through host memory are printed.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -876,24 +897,30 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int
 
 # --- phase 8: the streaming fold ---------------------------------------------
 
-# (a): a sequencing run at 30x over one genome
-GENOME_BASES, RUN_READS = 50_000_000, 10_000_000
+# (a): a sequencing run at 15x over one genome (10M reads, 30x, until the
+# script passed ~600 s with phase 11)
+GENOME_BASES, RUN_READS = 50_000_000, 5_000_000
 RUN_CHUNK = 250_000  # reads written at a time
 BUDGET = 1 << 19  # (c): the device slot budget
 PER_BATCH = ("extract", "count", "compact", "merge")  # the fold's phases
 
 
-def write_genome_run(path: str) -> tuple[np.ndarray, np.ndarray]:
-    """Reads sampled from one random genome, half reverse-complemented
-    (as ``simulate_coverage_reads`` draws them), written a chunk at a
-    time so the host never holds all reads; returns (genome, starts)."""
-    rng = np.random.default_rng(SEED + 8)
-    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
-    starts = rng.integers(0, GENOME_BASES - READ_LEN + 1, RUN_READS)
-    flip = rng.random(RUN_READS) < 0.5
+def write_genome_run(path: str, genome_bases: int | None = None,
+                     n_reads: int | None = None, seed: int = SEED + 8
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Reads sampled from one random genome (8a's sizes by default), half
+    reverse-complemented (as ``simulate_coverage_reads`` draws them),
+    written a chunk at a time so the host never holds all reads; returns
+    (genome, starts)."""
+    genome_bases = genome_bases or GENOME_BASES
+    n_reads = n_reads or RUN_READS
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_bases, dtype=np.uint8)
+    starts = rng.integers(0, genome_bases - READ_LEN + 1, n_reads)
+    flip = rng.random(n_reads) < 0.5
     windows = np.lib.stride_tricks.sliding_window_view(genome, READ_LEN)
     with open(path, "wb") as f:
-        for s in range(0, RUN_READS, RUN_CHUNK):
+        for s in range(0, n_reads, RUN_CHUNK):
             reads = windows[starts[s: s + RUN_CHUNK]]  # a copy
             fl = flip[s: s + RUN_CHUNK]
             reads[fl] = 3 - reads[fl, ::-1]
@@ -974,8 +1001,9 @@ def fold_run(dev, what: str, windows: int, path: str, **kw):
 
 
 def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
-               cov_table) -> dict:
-    """Phase 8; returns the count path's kernels' launches by case."""
+               cov_table) -> tuple[dict, tuple]:
+    """Phase 8; returns the count path's kernels' launches by case and
+    8a's (FASTQ path, oracle keys, oracle counts)."""
     from kmer_tpu_torch.ops import wide
     from kmer_tpu_torch.pipeline import (
         PipelineCheckpoint, count_batches_pipelined, file_batch_feed)
@@ -1003,8 +1031,8 @@ def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
     check_wide(table, keys, counts, K, "8a")
     log(f"8a: exact against the genome oracle ({time.perf_counter() - t0:.1f}"
         f" s); distinct {keys.size}, total {windows}")
-    del table, keys, counts, genome, starts
-    os.unlink(path)
+    run = (path, keys, counts)  # phase 11 counts this run again
+    del table, genome, starts
 
     # (b) state at size: phase 4's file through the fold
     windows = MAIN_READS * (READ_LEN - K + 1)
@@ -1047,7 +1075,7 @@ def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
     check_wide(table, want_keys, want_counts, K, "8c, resumed")
     log(f"8c: spilled and resumed runs equal phase 5's table "
         f"({len(batches)} batches, resumed at {done})")
-    return launches
+    return launches, run
 
 
 
@@ -1671,6 +1699,392 @@ def engine_phase(dev, tmp: str, main_table, chr_distinct: int
     return launches, dense_times
 
 
+# --- phase 11: multi-device on the card ------------------------------------
+
+
+RUN_SHARDS = 4  # (b): gloo ranks sharing the card, one FASTQ shard each
+RUN_ACC = 1 << 24  # (b): each rank's slots: ~50M distinct keys / 4 ranks
+NCCL_ACC = 1 << 28  # (a): the one rank's slots for phase 4's ~130M keys
+# (a), DISTCOUNT_r05.json's durability case: 1M reads of a 5 Mbp genome
+DURABLE_GENOME, DURABLE_BATCH, DURABLE_ACC = 5_000_000, 65536, 1 << 23
+SHARD_READS, SHARD_LEN = 1 << 16, 160  # (c), (d): phase 4's reads, padded
+SHQ_KEYS, SHQ_QUERIES = 1 << 22, 1 << 14  # (e)
+
+
+def distcount_ranks(tmp: str, tag: str, argvs: list[list[str]],
+                    timeout: float = 600) -> list[dict]:
+    """One ``python -m kmer_tpu_torch distcount`` per argv, all started
+    together; every one must exit 0 (each is killed on the way out).
+    Returns their JSON lines; their logs go to ``<tmp>/<tag>.rank<i>.log``."""
+    procs, logs = [], []
+    try:
+        for i, a in enumerate(argvs):
+            logs.append(open(os.path.join(tmp, f"{tag}.rank{i}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kmer_tpu_torch", "distcount", *a],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=logs[-1],
+                text=True))
+        outs = []
+        for p, lg in zip(procs, logs):
+            out, _ = p.communicate(timeout=timeout)
+            lg.seek(0)
+            check(p.returncode == 0, f"{tag}: a distcount rank exited "
+                  f"{p.returncode}: {lg.read()[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lg in logs:
+            lg.close()
+
+
+def rank_launches(what: str, outs: list[dict]) -> dict:
+    """Every rank must have launched both count-path kernels; returns
+    their launches summed over the ranks."""
+    total = {}
+    for o in outs:
+        for name, n in o["detail"]["launches"].items():
+            check(n >= 1, f"{what}: rank {o['rank']} launched {name} {n} "
+                  "times")
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def same_npz(a: str, b: str) -> bool:
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[f], y[f]) for f in x.files)
+
+
+def nccl_case(tmp: str, main_fastq: str, main_table) -> dict:
+    """11a: distcount on one NCCL rank over phase 4's FASTQ equals phase
+    4's table.  Then DISTCOUNT_r05.json's durability case (1M x 150 bp
+    reads of a 5 Mbp genome, ~5M groups, batches of 65,536 reads, 2^23
+    slots, a checkpoint every 4 batches): a straight run equals the
+    genome oracle, and a run killed with -9 once its first checkpoint is
+    on disk and then resumed writes the straight run's file bit for
+    bit."""
+    from kmer_tpu_torch.parallel.launch import free_port
+    from kmer_tpu_torch.parallel.streaming import load_live
+
+    def argv(path, *extra):
+        return ["--input", path, "-k", str(K), "--canonical",
+                "--coordinator", f"127.0.0.1:{free_port()}",
+                "--num-processes", "1", "--process-id", "0", "--backend",
+                "nccl", "--device", "cuda", *extra]
+
+    launches = {}
+    straight = os.path.join(tmp, "nccl")
+    t0 = time.perf_counter()
+    (out,) = distcount_ranks(tmp, "11a", [argv(
+        main_fastq, "--acc-capacity", str(NCCL_ACC), "--out", straight)])
+    wall = time.perf_counter() - t0
+    launches["11a nccl"] = rank_launches("11a", [out])
+    check(out["overflow"] == 0, "11a: no overflow")
+    t, _ = load_live(straight + ".rank0.npz")
+    check(np.array_equal(t.keys.numpy(), main_table.keys.numpy())
+          and np.array_equal(t.counts.numpy(),
+                             main_table.counts.numpy().astype(np.int64)),
+          "11a: the rank file equals phase 4's table")
+    d = out["detail"]
+    log(f"11a: distcount, 1 NCCL rank, phase 4's FASTQ: {wall:.3f} s with "
+        f"start-up, {d['elapsed_s']:.3f} s in the rank = "
+        f"{d['kmers_per_s']:.1f} k-mers/s; {t.n_unique} groups, equal to "
+        f"phase 4's table; launches {launches['11a nccl']}; peak device "
+        f"memory {d['peak_device_bytes']} bytes")
+    os.unlink(straight + ".rank0.npz")
+
+    # the durability case of DISTCOUNT_r05.json
+    r05 = os.path.join(tmp, "r05.fastq")
+    genome, starts = write_genome_run(r05, DURABLE_GENOME, MAIN_READS,
+                                      SEED + 11)
+    keys, counts = genome_oracle(genome, starts, K)
+    extra = ("--batch", str(DURABLE_BATCH), "--acc-capacity",
+             str(DURABLE_ACC))
+    plain = os.path.join(tmp, "r05_straight")
+    t0 = time.perf_counter()
+    (out,) = distcount_ranks(tmp, "11a_r05", [argv(r05, *extra, "--out",
+                                                   plain)])
+    wall = time.perf_counter() - t0
+    launches["11a r05"] = rank_launches("11a r05", [out])
+    t, _ = load_live(plain + ".rank0.npz")
+    check(np.array_equal(t.keys.numpy().view(np.uint64), keys)
+          and np.array_equal(t.counts.numpy(), counts.astype(np.int64)),
+          "11a r05: equal to the genome oracle")
+    ck, durable = os.path.join(tmp, "r05_ck"), os.path.join(tmp, "durable")
+    extra += ("--ckpt", ck, "--ckpt-every", "4", "--out", durable)
+    with open(os.path.join(tmp, "11a_killed.log"), "w+") as lg:
+        t1 = time.perf_counter()
+        p = subprocess.Popen([sys.executable, "-m", "kmer_tpu_torch",
+                              "distcount", *argv(r05, *extra)], cwd=ROOT,
+                             stdout=subprocess.DEVNULL, stderr=lg)
+        try:
+            while p.poll() is None and not os.path.exists(
+                    ck + ".rank0.npz"):
+                time.sleep(0.02)
+            p.kill()
+            p.wait()
+        finally:
+            if p.poll() is None:
+                p.kill()
+        killed_at = time.perf_counter() - t1
+        lg.seek(0)
+        submitted = [int(ln.split("checkpoint ")[1].split()[0])
+                     for ln in lg if "checkpoint" in ln and "submitted" in ln]
+    check(p.returncode == -9, f"11a: the run was killed (rc {p.returncode})")
+    t1 = time.perf_counter()
+    (out2,) = distcount_ranks(tmp, "11a_resumed", [argv(r05, *extra)])
+    resume_wall = time.perf_counter() - t1
+    with open(os.path.join(tmp, "11a_resumed.rank0.log")) as lg:
+        resumed_at = [int(ln.split(" at batch ")[1].split()[0]) for ln in lg
+                      if "resumed rank 0 at batch" in ln]
+    check(len(resumed_at) == 1, "11a: the second run resumed")
+    launches["11a resumed"] = rank_launches("11a resumed", [out2])
+    check(same_npz(durable + ".rank0.npz", plain + ".rank0.npz"),
+          "11a: the killed and resumed run's file equals the straight "
+          "run's bit for bit")
+    n_batches = -(-MAIN_READS // DURABLE_BATCH)
+    reached = max(submitted, default=0)
+    log(f"11a r05 (DISTCOUNT_r05.json's case, {keys.size} groups): straight "
+        f"{wall:.3f} s with start-up ({out['detail']['elapsed_s']:.3f} s in "
+        f"the rank), equal to the genome oracle; killed with -9 "
+        f"{killed_at:.3f} s in, once its first rank checkpoint was on disk "
+        f"(its log had submitted checkpoints {submitted}); resumed at batch "
+        f"{resumed_at[0]} of {n_batches}, so it ran batches "
+        f"{resumed_at[0] + 1}-{n_batches}, {max(reached - resumed_at[0], 0)}"
+        f" of which the killed run had run too; resume {resume_wall:.3f} s "
+        f"with start-up; its file equals the straight run's bit for bit; "
+        f"launches {launches['11a resumed']}")
+    return launches
+
+
+def split_fastq(path: str, n_reads: int, parts: int, tmp: str) -> list[str]:
+    """``parts`` record-aligned shards of a FASTQ of fixed-length
+    records (``fastq_records``' layout)."""
+    rec = 9 + 1 + READ_LEN + 3 + READ_LEN + 1
+    per = n_reads // parts
+    out = []
+    with open(path, "rb") as f:
+        for i in range(parts):
+            shard = os.path.join(tmp, f"run_shard{i}.fastq")
+            n = per if i < parts - 1 else n_reads - per * (parts - 1)
+            with open(shard, "wb") as g:
+                left = n * rec
+                while left:
+                    chunk = f.read(min(left, 64 << 20))
+                    g.write(chunk)
+                    left -= len(chunk)
+            out.append(shard)
+    return out
+
+
+def gloo_distcount_case(tmp: str, run: tuple) -> dict:
+    """11b: distcount on 4 gloo ranks sharing the card, mesh (4,1), over
+    8a's reads in 4 record-aligned shards; the merged rank files equal
+    8a's genome oracle."""
+    from kmer_tpu_torch.packed import key_from_hi_lo
+    from kmer_tpu_torch.parallel.driver import merge_rank_files
+    from kmer_tpu_torch.parallel.launch import free_port
+
+    path, keys, counts = run
+    t0 = time.perf_counter()
+    shards = split_fastq(path, RUN_READS, RUN_SHARDS, tmp)
+    os.unlink(path)
+    log(f"11b: split 8a's FASTQ into {RUN_SHARDS} record-aligned shards in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out_stem = os.path.join(tmp, "gloo")
+    port = free_port()
+    argvs = [["--input", shard, "-k", str(K), "--canonical", "--coordinator",
+              f"127.0.0.1:{port}", "--num-processes", str(RUN_SHARDS),
+              "--process-id", str(i), "--backend", "gloo", "--device",
+              "cuda", "--batch", "131072", "--width", "160",
+              "--acc-capacity", str(RUN_ACC), "--out", out_stem]
+             for i, shard in enumerate(shards)]
+    t0 = time.perf_counter()
+    outs = distcount_ranks(tmp, "11b", argvs)
+    wall = time.perf_counter() - t0
+    launches = rank_launches("11b", outs)
+    staged = set()
+    for o in sorted(outs, key=lambda o: o["rank"]):
+        d = o["detail"]
+        check(o["overflow"] == 0, f"11b: rank {o['rank']} overflowed")
+        staged.update(d["staged_collectives"])
+        log(f"11b: rank {o['rank']}: {d['elapsed_s']:.3f} s, "
+            f"{d['kmers_per_s']:.1f} k-mers/s of its shard, peak device "
+            f"memory {d['peak_device_bytes']} bytes, merge efficiency "
+            f"{d['merge_efficiency']:.4f}, {o['local_groups']} groups, "
+            f"launches {d['launches']}")
+    for shard in shards:
+        os.unlink(shard)
+    t0 = time.perf_counter()
+    merged = merge_rank_files([f"{out_stem}.rank{i}.npz"
+                               for i in range(RUN_SHARDS)])
+    hi, lo, _, _, _ = merged.to_numpy()
+    check(np.array_equal(key_from_hi_lo(hi, lo).view(np.uint64), keys)
+          and np.array_equal(merged.counts64(), counts.astype(np.int64)),
+          "11b: merge_rank_files equals 8a's genome oracle")
+    total = int(counts.sum())
+    log(f"11b: 4 gloo ranks, mesh (4,1): {wall:.3f} s with start-up = "
+        f"{total / wall:.1f} k-mers/s; merge_rank_files equals 8a's genome "
+        f"oracle ({merged.n_unique} groups, {total} k-mers; merge and "
+        f"check {time.perf_counter() - t0:.1f} s); collectives staged "
+        f"through the host: {sorted(staged)}; launches {launches}")
+    return launches
+
+
+def _card_rank():
+    """This rank's card (a World rank of ``multi_phase``)."""
+    import torch
+
+    from kmer_tpu_torch.parallel.multihost import local_rank, rank_device
+
+    dev = rank_device("cuda", local_rank())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def sharded_rank(n_reads: int, read_len: int) -> dict:
+    """11c and 11d on one rank of a (2,2) mesh: count_kmers_sharded with
+    both merges and a forced overflow, and KmerCounter.count_sharded,
+    each equal to the one-device count of the whole batch."""
+    import torch
+
+    from kmer_tpu_torch.config import EngineConfig
+    from kmer_tpu_torch.models.pipeline import KmerCounter
+    from kmer_tpu_torch.ops.count import count_kmers
+    from kmer_tpu_torch.ops.extract import simulate_reads
+    from kmer_tpu_torch.parallel import comm, dist
+    from kmer_tpu_torch.parallel.dist import (
+        _bucket_of, count_kmers_sharded, make_sharded_count_step)
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card_rank()
+    mesh = make_mesh((2, 2), device=dev)
+    reads = np.zeros((n_reads, read_len), np.uint8)
+    reads[:, :READ_LEN] = simulate_reads(n_reads, READ_LEN, seed=SEED)
+    lengths = np.full(n_reads, READ_LEN, np.int32)
+    one = count_kmers(torch.from_numpy(reads).to(dev),
+                      torch.from_numpy(lengths).to(dev), K,
+                      canonical=True).trim()
+    mine = _bucket_of(one.keys, one.length, mesh.n_parts) == mesh.rank
+    def at_cap_8(fn):
+        """fn() with every partition bucket cut to 8 slots."""
+        real = dist.bucket_cap
+        dist.bucket_cap = lambda slots, n_parts, slack: 8
+        try:
+            return fn()
+        finally:
+            dist.bucket_cap = real
+
+    _, ovf = at_cap_8(lambda: make_sharded_count_step(
+        mesh, K, True, "partition")(reads, lengths))
+    check(int(ovf) > 0, "11c: a bucket cap of 8 overflows")
+    out = {"overflow at cap 8": int(ovf)}
+    model = KmerCounter(EngineConfig(k=K, canonical=True, mesh_shape=(2, 2)),
+                        device=dev)
+    for case, run, whole in (
+            ("gather", lambda: count_kmers_sharded(
+                reads, lengths, K, mesh, True, "gather"), True),
+            ("partition", lambda: count_kmers_sharded(
+                reads, lengths, K, mesh, True, "partition"), False),
+            ("forced overflow", lambda: at_cap_8(lambda: count_kmers_sharded(
+                reads, lengths, K, mesh, True, "partition")), True),
+            ("count_sharded", lambda: model.count_sharded(reads, lengths),
+             True)):
+        zero_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        table = run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches(f"11c {case}", {"wire_keys": 0})
+        t = table.trim()
+        want = (one.keys, one.counts) if whole else (one.keys[mine],
+                                                     one.counts[mine])
+        check(torch.equal(t.keys, want[0]) and torch.equal(t.counts, want[1]),
+              f"11c {case}: equal to the one-device table")
+        check(int(table.n_unique) == one.n_unique, f"11c {case}: n_unique")
+        out[case] = {"wall_s": wall, "rows": t.n_unique,
+                     "launches": launches}
+    out["staged"] = sorted(comm.STAGED)
+    return out
+
+
+def shq_rank(n_keys: int, n_queries: int) -> dict:
+    """11e on one rank: ``run_sharded_query_bench`` (its counts are held
+    against a one-device DeviceIndex inside)."""
+    from kmer_tpu_torch.bench import run_sharded_query_bench
+    from kmer_tpu_torch.parallel import comm
+
+    dev = _card_rank()
+    zero_launches()
+    result = run_sharded_query_bench(n_keys, n_queries, device=dev)
+    result["launches"] = read_launches("11e", {"wire_keys": 0,
+                                               "segment_counts": 0})
+    result["staged"] = sorted(comm.STAGED)
+    return result
+
+
+def multi_phase(tmp: str, main_fastq: str, main_table, run) -> dict:
+    """Phase 11; returns the count path's launches by case, summed over
+    the ranks."""
+    from kmer_tpu_torch.graft_entry import dryrun_multichip
+    from kmer_tpu_torch.parallel.launch import World
+
+    launches = {}
+    t0 = time.perf_counter()
+    launches.update(nccl_case(tmp, main_fastq, main_table))
+    log(f"11a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["11b, 4 ranks"] = gloo_distcount_case(tmp, run)
+    log(f"11b in {time.perf_counter() - t0:.1f} s")
+
+    def summed(per_rank):
+        return {name: sum(r[name] for r in per_rank)
+                for name in per_rank[0]}
+
+    t0 = time.perf_counter()
+    with World(4, "gloo", "cuda", timeout_s=300) as world:
+        got = world.run(sharded_rank, SHARD_READS, SHARD_LEN)
+        for case in ("gather", "partition", "forced overflow",
+                     "count_sharded"):
+            tag = "11d" if case == "count_sharded" else "11c"
+            launches[f"{tag} {case}"] = summed(
+                [g[case]["launches"] for g in got])
+            log(f"{tag} {case}, (2,2) over 4 gloo ranks, {SHARD_READS} x "
+                f"{READ_LEN} bp: equal to the one-device table on every "
+                f"rank; walls {[round(g[case]['wall_s'], 4) for g in got]}"
+                f" s; rows {[g[case]['rows'] for g in got]}; launches "
+                f"{launches[f'{tag} {case}']}")
+        log(f"11c: the step at a bucket cap of 8 overflowed by "
+            f"{got[0]['overflow at cap 8']}; collectives staged through "
+            f"the host: {got[0]['staged']}")
+        shq = world.run(shq_rank, SHQ_KEYS, SHQ_QUERIES)
+        launches["11e shq"] = summed([r["launches"] for r in shq])
+        d = shq[0]["detail"]
+        log(f"11e: bench --mode shq's run over 4 gloo ranks, {d['n_keys']} "
+            f"keys, {d['n_queries']} queries: {shq[0]['value']} lookups/s "
+            f"(rank 0), build {d['build_s']} s, lookup {d['lookup_s']} s, "
+            f"{d['hits']} hits; every rank's counts equal the one-device "
+            f"DeviceIndex's; launches {launches['11e shq']}")
+    log(f"11c-e in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zero_launches()
+    dry = dryrun_multichip(4, "cuda", timeout_s=300)
+    for r, n in enumerate(dry["launches"]):
+        check(min(n.values()) >= 1, f"11d dryrun: rank {r} launches {n}")
+    launches["11d dryrun"] = summed(dry["launches"])
+    for name, n in count_path_kernels().items():  # the one-rank fold here
+        launches["11d dryrun"][name] += n.launches
+    log(f"11d: dryrun_multichip(4) on the card, mesh {dry['shape']}, "
+        f"{dry['spills']} spill runs, in {time.perf_counter() - t0:.1f} s; "
+        f"launches by rank {dry['launches']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1715,8 +2129,8 @@ def main() -> int:
         bench_launches, chr_distinct = bench_on_card(
             dev, main_table.distinct(), cov_table.distinct())
         t0 = time.perf_counter()
-        fold_launches = fold_phase(dev, tmp, main_fastq, main_table,
-                                   cov_fastq, cov_table)
+        fold_launches, run = fold_phase(dev, tmp, main_fastq, main_table,
+                                        cov_fastq, cov_table)
         log(f"phase 8: the streaming fold in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         sql_launches = sql_phase(dev, tmp, card)
@@ -1729,7 +2143,11 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s ({card})")
         print(json.dumps({"phase10_dense_vs_sort_ms": dense_times}),
               flush=True)
-    log(f"chip_smoke: phases 1-10 passed in "
+        t0 = time.perf_counter()
+        multi_launches = multi_phase(tmp, main_fastq, main_table, run)
+        log(f"phase 11: multi-device on the card in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+    log(f"chip_smoke: phases 1-11 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def by_path(name):
@@ -1738,7 +2156,9 @@ def main() -> int:
                 **{f"fold ({c})": n[name] for c, n in fold_launches.items()},
                 **{f"sql ({c})": n[name] for c, n in sql_launches.items()},
                 **{f"engine ({c})": n[name]
-                   for c, n in engine_launches.items()}}
+                   for c, n in engine_launches.items()},
+                **{f"multi ({c})": n[name]
+                   for c, n in multi_launches.items()}}
 
     main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{

@@ -28,10 +28,11 @@ Ported so far:
   (``ops.dense_count``, ``ops.count_kmers_auto``) and its graft entry
   (``graft_entry``), ``count_long_sequence`` and ``count_read_stream``
   (``streaming``) with ``ResumableCount``, and the CLI's ``serve`` (WAL,
-  TCP) and ``selftest``.
-
-Not yet: the multi-device engine (``kmer_tpu.parallel``'s sharded
-count, stream and index, ``distcount``, ``KmerCounter.sharded_step``).
+  TCP) and ``selftest``;
+* the multi-device engine, one process per rank over torch.distributed
+  (``parallel``): the sharded count and stream, the sharded index and
+  filter, ``distcount``, ``KmerCounter.sharded_step`` and the
+  multi-device dryrun (``graft_entry.dryrun_multichip``).
 """
 
 from .api import KmerTable  # noqa: F401

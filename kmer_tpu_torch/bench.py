@@ -22,6 +22,8 @@ card's name.
   fenced 8-base prefix ranges on the sorted column, and the builds.
 * ``run_pattern_bench``: qkmer containment (``@>``) through
   ``DeviceIndex.pattern_hits`` at three selectivities.
+* ``run_sharded_query_bench`` (shq): ``ShardedIndex`` build and batched
+  equality lookups over the ranks of the process group.
 
 Every pass is timed warm and ends in a read of ``n_unique`` to the host,
 which waits for the device.  Each function takes an explicit ``device``:
@@ -285,6 +287,64 @@ def run_chr_bench(
             "total_kmers": total_windows,
             "unique_kmers": n_unique,
             "device": device_name(device),
+        },
+    }
+
+
+def run_sharded_query_bench(n_keys: int = 1 << 20, n_queries: int = 1 << 14,
+                            seed: int = 0, mesh=None, *,
+                            device: torch.device | str = "cuda") -> dict:
+    """Multi-rank index serving: ``ShardedIndex`` build and batched
+    equality lookups (cap 4) over the mesh's ranks (the process group's,
+    or one rank), every rank with the same seeded keys and queries.  Each
+    query's exact hit count must equal a one-device ``DeviceIndex`` range
+    over the whole column, and every query key exists."""
+    from .parallel.mesh import make_mesh
+    from .parallel.shindex import ShardedIndex
+
+    device = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 2**32, n_keys, dtype=np.uint64).astype(np.uint32)
+    lo = np.zeros(n_keys, np.uint32)
+    ln = np.full(n_keys, 16, np.int32)
+    col = PackedKmers(hi=hi, lo=lo, length=ln)
+
+    synchronize(mesh.device)
+    t0 = time.perf_counter()
+    sidx = ShardedIndex.build(col, mesh)
+    synchronize(mesh.device)
+    build_s = time.perf_counter() - t0
+
+    qsel = rng.integers(0, n_keys, n_queries)
+    qkey = torch.from_numpy(key_from_hi_lo(hi[qsel], lo[qsel])).to(
+        mesh.device)
+    qln = torch.full((n_queries,), 16, dtype=torch.int32, device=mesh.device)
+    sidx.lookup("eq", qkey, qln, 4)  # warm
+    synchronize(mesh.device)
+    t0 = time.perf_counter()
+    _, _, count = sidx.lookup("eq", qkey, qln, 4)
+    hits = int(count.sum())
+    dt = time.perf_counter() - t0
+    _check(hits >= n_queries, "every query key exists")
+    one = DeviceIndex.build(KmerColumn.from_packed(col, mesh.device))
+    left, right = one.eq_ranges(qkey, qln)
+    _check(torch.equal(count, right - left),
+           "sharded counts == one-device DeviceIndex ranges")
+    return {
+        "metric": "sharded_index_eq_lookups_per_s",
+        "value": round(n_queries / dt, 1),
+        "unit": "lookups/s",
+        "vs_baseline": round((n_queries / dt) / 4.7e3, 1),
+        "detail": {
+            "n_devices": mesh.n_parts,
+            "n_keys": n_keys,
+            "n_queries": n_queries,
+            "hits": hits,
+            "build_s": round(build_s, 3),
+            "lookup_s": round(dt, 4),
+            "device": device_name(mesh.device),
         },
     }
 

@@ -9,9 +9,14 @@
                                    --eq acga | --prefix ac | --pattern angry
                                    [--device cuda]
   python -m kmer_tpu_torch parity  [--scale 100000] [--device cuda]
-  python -m kmer_tpu_torch bench   [--mode fused|stream|chr|pattern]
+  python -m kmer_tpu_torch bench   [--mode fused|stream|chr|shq|pattern]
                                    [--queries] [--reads N] [-k 21]
                                    [--trace DIR] [--device cuda]
+  python -m kmer_tpu_torch distcount --input shard.fastq -k 21
+                                   [--coordinator HOST:PORT
+                                    --num-processes N --process-id I
+                                    --backend nccl|gloo] [--ckpt STEM]
+                                   [--out STEM] [--device cuda]
   python -m kmer_tpu_torch serve   --input data.csv [--no-index]
                                    [--wal PATH] [--tcp PORT] [--device cuda]
   python -m kmer_tpu_torch selftest [--device cuda]
@@ -25,7 +30,11 @@ group on stdout, by descending count and then ascending key, and a
 column, or with ``--from-dna-column`` counts the k-mers of the dna
 column.  ``query`` prints the matching rows as CSV and ``# N rows`` on
 stderr.  ``bench`` prints the one-line result JSON as the last line of
-stdout.  ``extract`` and ``datagen`` run on the host.
+stdout.  ``distcount`` (one process per rank) prints one JSON line
+per rank (``kmer_tpu``'s keys, and a ``detail`` with the rank's rate,
+merge efficiency, peak device memory and kernel launches) and exits 3 on
+overflow.  ``extract`` and ``datagen`` run on the
+host.
 """
 
 from __future__ import annotations
@@ -441,10 +450,6 @@ def _cmd_selftest(args) -> int:
 def _cmd_bench(args) -> int:
     from . import bench
 
-    if args.mode == "shq" and not args.queries:
-        raise NotImplementedError(
-            "the shq bench mode (sharded index serving) comes with the "
-            "multi-device port (ROADMAP.md §1 item 6)")
     from .config import EngineConfig
 
     EngineConfig(k=args.k, canonical=not args.no_canonical,
@@ -464,6 +469,8 @@ def _cmd_bench(args) -> int:
     with trace:
         if args.queries:
             result = bench.run_query_bench(device=args.device)
+        elif args.mode == "shq":
+            result = bench.run_sharded_query_bench(device=args.device)
         elif args.mode == "pattern":
             result = bench.run_pattern_bench(device=args.device)
         elif args.mode == "chr":
@@ -479,6 +486,55 @@ def _cmd_bench(args) -> int:
                 device=args.device)
     print(json.dumps(result))
     return 0
+
+
+def _cmd_distcount(args) -> int:
+    """Distributed streaming count: one process per rank, each with the
+    same coordinator and its own input shard; rank i writes its disjoint
+    hash range to <out>.rank{i}.npz (merge them with
+    ``parallel.driver.merge_rank_files``)."""
+    from .parallel.driver import run_distcount
+    from .utils.logging import StatsCounters, get_logger
+
+    stats = StatsCounters()
+    local, overflow = run_distcount(
+        input_path=args.input, k=args.k, fmt=args.format,
+        canonical=args.canonical, coordinator=args.coordinator,
+        num_processes=args.num_processes, process_id=args.process_id,
+        batch=args.batch, width=args.width, acc_capacity=args.acc_capacity,
+        ckpt=args.ckpt, ckpt_every=args.ckpt_every, out=args.out,
+        stats=stats,
+        chunk_bytes=args.chunk_mb << 20 if args.chunk_mb else None,
+        spill_dir=args.spill_dir, spill_threshold=args.spill_threshold,
+        device=args.device, backend=args.backend)
+    get_logger().info("stats %s", stats.to_json())
+    import torch
+    import torch.distributed as dist
+
+    from .kernels.segment_counts import segment_counts
+    from .kernels.wire_keys import wire_keys
+    from .parallel.comm import STAGED
+
+    dev = torch.device(args.device)
+    print(json.dumps({  # ``local`` holds its live rows alone
+        "rank": dist.get_rank() if dist.is_initialized() else 0,
+        "local_groups": int(local.counts.numel()),
+        "local_total": int(local.counts.sum()),
+        "overflow": overflow,
+        "detail": {
+            "kmers_per_s": stats.rates()["kmers_per_s"],
+            "elapsed_s": stats.elapsed,
+            "merge_efficiency": stats.merge_efficiency,
+            "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                  if dev.type == "cuda" else None),
+            "launches": {"wire_keys": wire_keys.launches,
+                         "segment_counts": segment_counts.launches},
+            "staged_collectives": sorted(STAGED),
+        },
+    }), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0 if overflow == 0 else 3
 
 
 def _device_flag(parser) -> None:
@@ -583,8 +639,9 @@ def main(argv=None) -> int:
     b.add_argument("--mode",
                    choices=["fused", "stream", "chr", "shq", "pattern"],
                    default="fused",
-                   help="pattern: qkmer containment lookups; shq is not "
-                   "ported yet (raises)")
+                   help="pattern: qkmer containment lookups; shq: sharded "
+                   "index lookups over the process group's ranks (one "
+                   "rank in one process)")
     b.add_argument("--queries", action="store_true",
                    help="benchmark index lookups instead of counting")
     b.add_argument("--trace", metavar="DIR", default=None,
@@ -595,6 +652,50 @@ def main(argv=None) -> int:
                    "(realistic duplication) instead of uniform-random")
     _device_flag(b)
     b.set_defaults(fn=_cmd_bench)
+
+    dc = sub.add_parser(
+        "distcount",
+        help="multi-host distributed streaming count (one process per rank)",
+    )
+    dc.add_argument("--input", required=True,
+                    help="this rank's FASTA/FASTQ shard")
+    dc.add_argument("--format", choices=["fasta", "fastq"], default=None)
+    dc.add_argument("-k", type=int, default=21)
+    dc.add_argument("--canonical", action="store_true")
+    dc.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    dc.add_argument("--num-processes", type=int, default=None)
+    dc.add_argument("--process-id", type=int, default=None)
+    dc.add_argument("--batch", type=int, default=0,
+                    help="per-rank reads per step (0 = auto-sized to ~64M "
+                    "window slots when single-process, 65536 multi-process: "
+                    "ranks must agree on shapes)")
+    dc.add_argument("--width", type=int, default=0,
+                    help="fixed row width; longer reads split exactly (0 = "
+                    "auto from observed read lengths when single-process, "
+                    "256 multi-process)")
+    dc.add_argument("--acc-capacity", type=int, default=1 << 22,
+                    help="per-rank accumulator slots (overflow is reported; "
+                    "raise this or use --spill-dir for higher cardinality)")
+    dc.add_argument("--chunk-mb", type=int, default=0, metavar="MB",
+                    help="ingest window size in MiB (default 256)")
+    dc.add_argument("--ckpt", default=None, help="checkpoint path stem")
+    dc.add_argument("--ckpt-every", type=int, default=16)
+    dc.add_argument(
+        "--spill-dir", default=None, metavar="DIR",
+        help="flush live slots to sorted runs under DIR when a shard nears "
+        "capacity; the result is their exact K-way merge (requires --ckpt)")
+    dc.add_argument(
+        "--spill-threshold", type=float, default=0.85, metavar="F",
+        help="spill when live slots exceed this fraction of capacity; leave "
+        "headroom for one checkpoint interval of new keys")
+    dc.add_argument("--out", default=None,
+                    help="result path stem (.rank{i}.npz)")
+    dc.add_argument(
+        "--backend", choices=["nccl", "gloo"], default=None,
+        help="process-group backend, required with a coordinator: nccl "
+        "(one card per rank) or gloo (the CPU, or ranks sharing a card)")
+    _device_flag(dc)
+    dc.set_defaults(fn=_cmd_distcount)
 
     s = sub.add_parser("selftest", help="end-to-end smoke test")
     _device_flag(s)

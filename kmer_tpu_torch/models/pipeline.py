@@ -4,8 +4,8 @@
 Extraction, canonicalization and counting over padded read batches on
 one device.  Up to ``DENSE_ROUTE_K`` the count is the dense histogram
 (``ops/dense_count``); above it, the sort and the segment-count kernel
-(``ops/count.count_kmers``).  The multi-device step waits for the
-multi-device port.
+(``ops/count.count_kmers``).  ``sharded_step``/``count_sharded`` count
+over a mesh of ranks (``parallel.dist``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ class KmerCounter:
         # and read once by check_exact: a host read a step would
         # synchronize every step
         self._dense_max: torch.Tensor | None = None
+        self._sharded_steps: dict = {}
 
     def _forward(self, codes: torch.Tensor, lengths: torch.Tensor
                  ) -> CountTable:
@@ -61,12 +62,23 @@ class KmerCounter:
         if self._dense_max is not None:
             check_bin_max(int(self._dense_max))
 
+    # --- multi device --------------------------------------------------------
+
     def sharded_step(self, mesh=None):
-        raise NotImplementedError(
-            "KmerCounter.sharded_step comes with the multi-device port "
-            "(ROADMAP.md §1 item 6)")
+        """The multi-rank counting step (gather merge) of a mesh, built
+        once per mesh; the default mesh is ``config.mesh_shape`` over the
+        process group, on the counter's device."""
+        from ..parallel.dist import make_sharded_count_step
+        from ..parallel.mesh import make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(self.config.mesh_shape, device=self.device)
+        key = (id(mesh), self.config.k, self.config.canonical)
+        if key not in self._sharded_steps:
+            self._sharded_steps[key] = make_sharded_count_step(
+                mesh, self.config.k, self.config.canonical)
+        return self._sharded_steps[key]
 
     def count_sharded(self, codes, lengths, mesh=None) -> CountTable:
-        raise NotImplementedError(
-            "KmerCounter.count_sharded comes with the multi-device port "
-            "(ROADMAP.md §1 item 6)")
+        """The whole table of a global batch, on every rank."""
+        return self.sharded_step(mesh)(codes, lengths)

@@ -59,8 +59,12 @@ class WideCounts:
 
     def trim(self) -> "WideCounts":
         """The live rows, in slot order, as a host table.  They move to
-        the host as one stacked tensor, not one transfer per lane."""
-        idx = torch.nonzero(self.counts > 0).squeeze(1)
+        the host as one stacked tensor, not one transfer per lane; a host
+        table of live rows alone is not copied."""
+        live = self.counts > 0
+        if self.counts.device.type == "cpu" and bool(live.all()):
+            return dataclasses.replace(self, n_unique=self.capacity)
+        idx = torch.nonzero(live).squeeze(1)
         rows = torch.stack([
             self.keys[idx], self.length[idx].to(torch.int64),
             self.counts[idx]]).cpu()

@@ -69,40 +69,52 @@ def auto_batch(width: int, k: int, target_windows: int = 1 << 26) -> int:
 
 def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
                     width: int | None, chunk_bytes: int | None = None,
-                    ) -> tuple[Iterator, int, int, int]:
+                    width_multiple: int = 16,
+                    target_windows: int = 1 << 26,
+                    ) -> tuple[Iterator, int, int, int | None]:
     """Fixed-shape feed for a FASTA/FASTQ file with auto batch/width.
 
     Returns (iterator of (words [B, W/16] uint32, lengths [B] uint16),
     batch, width, est_windows).  Width is sampled from the first ingest
     chunk when not given; longer reads split exactly, shorter ones pad.
-    ``est_windows`` extrapolates the first chunk's window count to the
-    whole file (0 when it holds no record): the routing signal.
+    The width rounds up to ``width_multiple`` (16 * seq for a sharded
+    consumer, whose word axis must split evenly).  ``est_windows``
+    extrapolates the first chunk's window count to the whole file (None
+    when no record was probed or the file's size cannot be read): the
+    routing signal.
     """
     from .io.ingest import DEFAULT_CHUNK_BYTES, iter_encoded_chunks
 
     cb = chunk_bytes or DEFAULT_CHUNK_BYTES
-    est_windows = 0
+    est_windows = None
     probe_bytes = min(cb, 16 << 20)
-    fsize = os.path.getsize(path)
+    try:
+        fsize = os.path.getsize(path)
+    except OSError:
+        fsize = None
     for codes, offs in iter_encoded_chunks(path, fmt, probe_bytes):
         lens = np.diff(offs)
         if not width:
             width = auto_width(lens)
-        wins = int(np.maximum(lens - (k - 1), 0).sum())
-        est_windows = int(wins * max(fsize / min(probe_bytes, fsize), 1.0))
+        if fsize is not None:
+            wins = int(np.maximum(lens - (k - 1), 0).sum())
+            est_windows = int(wins * max(fsize / min(probe_bytes, fsize),
+                                         1.0))
         break
-    width = -(-(width or 256) // 16) * 16
+    width_multiple = max(16, width_multiple)
+    width = -(-(width or 256) // width_multiple) * width_multiple
     while width <= k - 1:
-        width += 16
+        width += width_multiple
     if width > 0xFFFF:
         raise ValueError(
             f"width {width} exceeds the uint16 row-length bound (65535); "
             "long reads split exactly, so smaller widths lose nothing")
     if not batch:
-        batch = auto_batch(width, k)
-        # small files must not pay a full-size batch of padding
-        need_rows = est_windows // max(width - k + 1, 1) + 1
-        batch = min(batch, max(4096, 1 << int(need_rows).bit_length()))
+        batch = auto_batch(width, k, target_windows)
+        if est_windows is not None:
+            # small files must not pay a full-size batch of padding
+            need_rows = est_windows // max(width - k + 1, 1) + 1
+            batch = min(batch, max(4096, 1 << int(need_rows).bit_length()))
 
     def gen():
         buf_w: list[np.ndarray] = []
@@ -603,7 +615,8 @@ def count_file(
         path, fmt, k, batch, width, chunk_bytes)
     if single_shot is None:
         single_shot = (
-            est_windows * 1.1 <= _SINGLE_SHOT_MAX
+            est_windows is not None
+            and est_windows * 1.1 <= _SINGLE_SHOT_MAX
             and batch * (width - k + 1) <= _SINGLE_SHOT_MAX
             and not ckpt_path and not spill_dir and not max_capacity
         )
@@ -619,9 +632,12 @@ def count_file(
                 "to the streaming fold")
             feed, batch, width, est_windows = file_batch_feed(
                 path, fmt, k, batch, width, chunk_bytes)
-    # bases <= file bytes (FASTA ~1x, FASTQ ~0.45x); windows <= bases
-    est = os.path.getsize(path) // (2 if fmt == "fastq" else 1)
-    capacity = initial_capacity(capacity, k, est)
+    try:
+        # bases <= file bytes (FASTA ~1x, FASTQ ~0.45x); windows <= bases
+        est = os.path.getsize(path) // (2 if fmt == "fastq" else 1)
+        capacity = initial_capacity(capacity, k, est)
+    except OSError:
+        pass
     if max_capacity:
         capacity = min(capacity, max_capacity)
     ckpt = PipelineCheckpoint(ckpt_path) if ckpt_path else None

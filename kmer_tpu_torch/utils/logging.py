@@ -35,6 +35,8 @@ class StatsCounters:
     batches: int = 0
     grows: int = 0  # streaming fold: capacity growth events
     spills: int = 0  # streaming fold: sorted runs spilled
+    # sharded stream: live groups over slots sent by the partition merge
+    merge_efficiency: float | None = None
     started_at: float = dataclasses.field(default_factory=time.time)
 
     def record_batch(self, n_reads: int, n_bases: int, n_kmers: int,

@@ -118,12 +118,23 @@ def test_cli_bench_last_line_is_the_result(mode, capsys, monkeypatch):
     assert out["detail"]["device"] == "cpu"
 
 
-@pytest.mark.parametrize("argv", [["--mode", "shq"], ["--no-pallas"]])
-def test_cli_bench_unported_modes_raise(argv):
-    """shq and --no-pallas are not ported and raise, citing their ROADMAP
-    item."""
+def test_cli_bench_unported_modes_raise():
+    """--no-pallas is not ported and raises, citing its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
-        main(["bench", "--device", "cpu", *argv])
+        main(["bench", "--device", "cpu", "--no-pallas"])
+
+
+def test_cli_bench_shq_prints_its_metric(capsys, monkeypatch):
+    """--mode shq runs the sharded-index bench on one rank in one
+    process and prints its metric."""
+    # the bench's default size is a full-size run: cut it here
+    monkeypatch.setattr(tb.run_sharded_query_bench, "__defaults__",
+                        (1 << 12, 256, 0, None))
+    assert main(["bench", "--device", "cpu", "--mode", "shq"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == "sharded_index_eq_lookups_per_s"
+    assert out["detail"]["n_devices"] == 1
+    assert out["detail"]["hits"] >= 256
 
 
 @pytest.mark.parametrize("argv, metric", [

@@ -670,3 +670,83 @@ def test_serve_on_cuda_equals_cpu(tmp_path, monkeypatch, capsys):
             out.append(capsys.readouterr().out)
     assert out[0] == out[1] == out[2] == out[3]
     assert out[0].count("\n") == 13
+
+
+# --- the multi-device port's collectives and shards on the card -------------
+
+
+def _one_rank_group(backend):
+    """A process group of this process alone on ``backend``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from kmer_tpu_torch.parallel.launch import free_port
+
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_comm_on_a_one_rank_group(backend):
+    """Each collective of ``parallel.comm`` runs on CUDA tensors in a
+    group of one rank (nccl: on the card; gloo: staged through the host
+    where gloo does not take CUDA tensors) and returns its input's
+    values, on the card."""
+    import torch.distributed as dist
+
+    from kmer_tpu_torch.parallel import comm
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _cuda()
+    _one_rank_group(backend)
+    try:
+        mesh = make_mesh((1, 1), device=dev)
+        x = torch.arange(6, dtype=torch.int64, device=dev).reshape(3, 2)
+        for got in (comm.all_gather_tiled(x, mesh),
+                    comm.all_gather_tiled(x, mesh, "data"),
+                    comm.all_to_all_slabs(x[None], mesh)[0],
+                    comm.all_reduce_sum(x, mesh), comm.ring_shift(x, mesh)):
+            assert got.device.type == "cuda" and torch.equal(got, x)
+        if backend == "gloo":
+            assert "all_to_all_single" in comm.STAGED
+            assert not comm.STAGED & comm.GLOO_CUDA
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [5, 21, 32])
+def test_halo_wire_on_cuda_matches_cpu(k):
+    """``_wire_keys_with_halo`` (one wire_keys launch a rank) on the card
+    equals its CPU run (the plain version), keys and mask, on a one-rank
+    mesh; and the sharded count step there equals the one-device count."""
+    from kmer_tpu_torch.ops.count import count_kmers
+    from kmer_tpu_torch.parallel.dist import (
+        _wire_keys_with_halo, make_sharded_count_step)
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, (64, 160), dtype=np.uint8)
+    lengths = rng.integers(0, 161, 64).astype(np.int32)
+    words = _t(pack2bit_rows(codes))
+    lens = torch.from_numpy(lengths)
+    launches = wire_keys.launches
+    got = _wire_keys_with_halo(words.to(dev), lens.to(dev), k,
+                               make_mesh((1, 1), device=dev), True)
+    assert wire_keys.launches == launches + 1
+    want = _wire_keys_with_halo(words, lens, k,
+                                make_mesh((1, 1), device="cpu"), True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    mesh = make_mesh((1, 1), device=dev)
+    for merge in ("gather", "partition"):
+        out = make_sharded_count_step(mesh, k, True, merge)(codes, lengths)
+        table = out[0] if merge == "partition" else out
+        one = count_kmers(torch.from_numpy(codes).to(dev),
+                          torch.from_numpy(lengths).to(dev), k, True)
+        t, o = table.trim(), one.trim()
+        assert torch.equal(t.keys, o.keys) and torch.equal(t.counts, o.counts)

@@ -142,14 +142,25 @@ def test_check_exact_reads_the_running_bin_max():
 
 
 @pytest.mark.parametrize("method", ["sharded_step", "count_sharded"])
-def test_multi_device_steps_raise(method):
+def test_multi_device_steps_match_kmer_tpu_on_one_rank(method):
+    """On the default mesh, one rank without a process group, the
+    multi-device steps count as kmer_tpu's do on a one-device mesh."""
+    import jax
+
+    from kmer_tpu.parallel.mesh import make_mesh
+
+    codes = simulate_reads(num_reads=8, read_len=30, seed=3)
+    lengths = np.full(8, 30, np.int32)
+    lengths[0] = 11
     counter = KmerCounter(EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        if method == "sharded_step":
-            counter.sharded_step()
-        else:
-            counter.count_sharded(np.zeros((1, 30), np.uint8),
-                                  np.array([30], np.int32))
+    if method == "sharded_step":
+        got = counter.sharded_step()(codes, lengths)
+        assert counter.sharded_step() is counter.sharded_step()
+    else:
+        got = counter.count_sharded(codes, lengths)
+    want = JaxCounter(JaxConfig()).count_sharded(
+        codes, lengths, make_mesh((1, 1), jax.devices()[:1]))
+    _assert_same(got, want)
 
 
 def test_counter_needs_a_card_for_cuda():
@@ -179,6 +190,14 @@ def test_new_modules_import_no_jax():
         "import kmer_tpu_torch.config, kmer_tpu_torch.models\n"
         "import kmer_tpu_torch.ops.dense_count, kmer_tpu_torch.streaming\n"
         "import kmer_tpu_torch.graft_entry, kmer_tpu_torch.cli\n"
+        "import kmer_tpu_torch.parallel.mesh, kmer_tpu_torch.parallel.comm\n"
+        "import kmer_tpu_torch.parallel.multihost\n"
+        "import kmer_tpu_torch.parallel.launch\n"
+        "import kmer_tpu_torch.parallel.dist\n"
+        "import kmer_tpu_torch.parallel.streaming\n"
+        "import kmer_tpu_torch.parallel.driver\n"
+        "import kmer_tpu_torch.parallel.shindex\n"
+        "import kmer_tpu_torch.parallel.query, kmer_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kmer_tpu'))\n"
         "assert not bad, bad\n"
