@@ -69,7 +69,7 @@ Phases, each of which must pass or the script exits nonzero:
    to 0 before and required to rise; (d) the CLI's ``query`` (one
    ``--eq``, ``--prefix`` and ``--pattern`` each) with and without
    ``--index``, equal outputs;
-   (e) ``run_query_bench`` at 2^22 and 2^25 keys (every query found by
+   (e) ``run_query_bench`` at 2^22 keys (every query found by
    hash and by binary search, the same rows both ways) and (f)
    ``run_pattern_bench`` at 2^22 keys, each timed with its peak device
    memory;
@@ -88,7 +88,7 @@ Phases, each of which must pass or the script exits nonzero:
    to the fast path; (e) ``count_read_stream`` over phase 4's reads in
    batches of 2^17, equal to phase 4's table, and its first 3 batches
    under a 2^25-slot budget with spills to a directory, equal to (a)'s
-   table after 3 steps; (f) ``serve`` on the card: a 1,000,000-row
+   table after 3 steps; (f) ``serve`` on the card: a 250,000-row
    ``datagen`` CSV loaded and indexed, 1,000 mixed EQ/PREFIX/PATTERN
    queries timed (p50/p99) and each equal to the table's scan on the
    card; then at phase 9's 100,000 rows a ``--wal`` server killed with -9
@@ -115,7 +115,27 @@ Phases, each of which must pass or the script exits nonzero:
    ``dryrun_multichip(4)`` on the card; (e) ``run_sharded_query_bench``
    (``bench --mode shq``) over the 4 ranks at 2^22 keys, its counts
    equal to a one-device ``DeviceIndex``'s.  The collectives that gloo
-   staged through host memory are printed.
+   staged through host memory are printed;
+12. the long runs, each in child processes that print their kernel
+   launches: (a) ``python -m kmer_tpu_torch.bench_entry`` with
+   ``KMER_BENCH_MODE=fused`` prints one JSON line on stdout and its
+   ``detail`` on stderr, its counts equal to phase 7's in-process run at
+   the same defaults, and both count-path kernels launched; (b) the
+   sustained stream (``runs.sustained``) at full size: 151 batches of
+   524,288 x 150 bp reads of a 1 Mbp genome, straight here, then killed
+   after 56 batches and resumed in children; the resumed table equals the
+   straight one bit for bit and a numpy oracle, with 999,980 groups, the
+   resume starts at batch >= 16, and the segment-count kernel launches
+   once a batch (and once to warm up), ``wire_keys`` never (raw codes);
+   (c) ``runs.ingest`` on 8a's FASTQ: the CLI ``count --chunk-mb 128
+   --top 3`` in a child whose peak RSS, less the shared libraries'
+   resident pages of an idle child (one that imports torch and starts
+   the card), stays under 4 GB (the raw peak is printed beside it), its
+   groups, total and top rows equal to 8a's oracle; then the CLI's
+   ``count --ckpt`` straight (its final checkpoint equal to the oracle), a ``count_file`` child
+   checkpointing every sixth of that count's seconds, killed with
+   SIGKILL once two checkpoints have landed, and resumed: it skips at
+   least one batch and its table equals the straight one.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -283,23 +303,24 @@ def time_cuda(fn, iters: int) -> float:
 
 
 def count_path_kernels() -> dict:
-    """The wrappers of the count path's kernels, by name."""
-    from kmer_tpu_torch.kernels.segment_counts import segment_counts
-    from kmer_tpu_torch.kernels.wire_keys import wire_keys
+    from kmer_tpu_torch.kernels import count_path_kernels
 
-    return {"wire_keys": wire_keys, "segment_counts": segment_counts}
+    return count_path_kernels()
 
 
 def zero_launches() -> None:
-    for fn in count_path_kernels().values():
-        fn.launches = 0
+    from kmer_tpu_torch.kernels import zero_launches
+
+    zero_launches()
 
 
 def read_launches(what: str, want: dict | None = None) -> dict:
     """The count path's kernels' launches since ``zero_launches``; each
     must be its ``want`` (an int, or a (low, high) range), by default at
     least 1."""
-    launches = {name: fn.launches for name, fn in count_path_kernels().items()}
+    from kmer_tpu_torch.kernels import launches as read
+
+    launches = read()
     for name, n in launches.items():
         w = (want or {}).get(name, (1, float("inf")))
         lo, hi = w if isinstance(w, tuple) else (w, w)
@@ -840,10 +861,11 @@ def probe_edges(dev) -> dict:
 
 
 def bench_on_card(dev, main_distinct: int, coverage_distinct: int
-                  ) -> tuple[dict, int]:
+                  ) -> tuple[dict, int, dict]:
     """The bench's modes on the card, held against phases 4 and 5; returns
-    the count path's kernels' launches in them and the chr sequence's
-    distinct count."""
+    the count path's kernels' launches in them, the chr sequence's
+    distinct count and the fused result at the benchmark entry's
+    defaults."""
     import torch
 
     from kmer_tpu_torch import bench
@@ -890,9 +912,14 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int
     want = np.unique(oracle_keys(codes[None, :], chr_k, canonical=True)).size
     check(small == want, f"chr bench at 2^24 bases: distinct {small} == "
           f"{want} (numpy oracle)")
+    # the benchmark entry's default workload (phase 12a runs the entry)
+    entry = bench.run_bench(n_reads=1 << 20, read_len=READ_LEN, k=K,
+                            canonical=True, device=dev)
+    log(f"bench at the entry's defaults (2^20 reads, seed 0): distinct "
+        f"{show(entry)}")
     launches = read_launches("the bench")
     log(f"bench: exact on every mode; kernel launches {launches}")
-    return launches, second
+    return launches, second, entry
 
 
 # --- phase 8: the streaming fold ---------------------------------------------
@@ -1204,7 +1231,6 @@ def sql_phase(dev, tmp: str, card: str) -> dict:
 
     for what, fn, kw in (
             ("query bench", run_query_bench, {}),
-            ("query bench", run_query_bench, {"n_keys": 1 << 25}),
             ("pattern bench", run_pattern_bench, {})):
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -1223,7 +1249,8 @@ DENSE_KS = (4, 6, 8, 10)  # (b): both routes timed at these k
 CHR_BASES, CHR_K, CHR_CHUNK = 15 << 24, 31, 1 << 24  # (d): configs[4]
 RESUME_BASES = 1 << 25  # (d): the resumable run's prefix
 STREAM_BUDGET = 1 << 25  # (e): the spill run's slot budget
-SERVE_ROWS, SERVE_QUERIES, SERVE_CLIENTS = 1_000_000, 1000, 4  # (f)
+# (f): 250,000 rows (1,000,000 until phase 12 took the script past ~600 s)
+SERVE_ROWS, SERVE_QUERIES, SERVE_CLIENTS = 250_000, 1000, 4
 
 
 def same_rows(got_keys, got_counts, want, what: str) -> None:
@@ -1891,8 +1918,7 @@ def gloo_distcount_case(tmp: str, run: tuple) -> dict:
 
     path, keys, counts = run
     t0 = time.perf_counter()
-    shards = split_fastq(path, RUN_READS, RUN_SHARDS, tmp)
-    os.unlink(path)
+    shards = split_fastq(path, RUN_READS, RUN_SHARDS, tmp)  # 12c: path
     log(f"11b: split 8a's FASTQ into {RUN_SHARDS} record-aligned shards in "
         f"{time.perf_counter() - t0:.1f} s")
     out_stem = os.path.join(tmp, "gloo")
@@ -2085,6 +2111,209 @@ def multi_phase(tmp: str, main_fastq: str, main_table, run) -> dict:
     return launches
 
 
+# --- phase 12: the long runs ------------------------------------------------
+
+ENTRY_FIELDS = ("mode", "n_reads", "read_len", "k", "canonical",
+                "total_kmers", "unique_kmers")
+
+
+def entry_case(entry_want: dict, **env_extra: str) -> dict:
+    """12a: the benchmark entry in a child at its defaults (fused, 2^20
+    reads, cuda; ``env_extra`` sets others for a rehearsal on the CPU);
+    returns its launches."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KMER_BENCH_")}
+    env.update(KMER_BENCH_MODE="fused", **env_extra)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "kmer_tpu_torch.bench_entry"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"12a: the entry exited {p.returncode}: "
+          f"{p.stderr[-3000:]}")
+    out = p.stdout.splitlines()
+    check(len(out) == 1, f"12a: {len(out)} lines on stdout, not 1")
+    result = json.loads(out[0])
+    details = [json.loads(ln)["detail"] for ln in p.stderr.splitlines()
+               if ln.startswith('{"detail": ')]
+    check(len(details) == 1, "12a: one detail line on stderr")
+    detail = details[0]
+    want = {k: v for k, v in entry_want.items() if k != "detail"}
+    check(set(result) == set(want), f"12a: stdout keys {sorted(result)}")
+    for key in ENTRY_FIELDS:
+        check(detail[key] == entry_want["detail"][key],
+              f"12a: {key} {detail[key]} == phase 7's "
+              f"{entry_want['detail'][key]}")
+    launches = detail["launches"]
+    check(min(launches.values()) >= 1, f"12a: launches {launches}")
+    log(f"12a: bench_entry (fused, 2^20 reads) in {wall:.3f} s with "
+        f"start-up: {out[0]}; counts equal phase 7's in-process run "
+        f"(distinct {detail['unique_kmers']}); records surfaced "
+        f"{sorted(set(detail) & {'sustained', 'out_of_core_ingest'})}; "
+        f"launches {launches}")
+    return launches
+
+
+def sustained_case(dev, tmp: str, cfg=None) -> dict:
+    """12b: the sustained stream at full size (``cfg`` shrinks it for a
+    rehearsal), straight here, killed and resumed in children; returns
+    the launches of the three runs."""
+    from kmer_tpu_torch.runs import sustained as sus
+
+    cfg = cfg or sus.Config()
+    full = cfg.full_size
+    d = os.path.join(tmp, "sustained")
+    zero_launches()
+    t0 = time.perf_counter()
+    straight = sus.run_phase("straight", cfg, d, dev)
+    wall = time.perf_counter() - t0
+    runs = {"straight": read_launches("12b straight", {
+        "wire_keys": 0, "segment_counts": cfg.steps + 1})}
+    check(straight["distinct"] == sus.FULL_DISTINCT or not full,
+          f"12b: straight distinct {straight['distinct']}")
+    log(f"12b straight: {cfg.steps} batches of {cfg.batch_reads} reads, "
+        f"{straight['total_kmers']} k-mers in {straight['wall_s']:.3f} s = "
+        f"{straight['kmers_per_s_sustained']:.1f} k-mers/s; "
+        f"{straight['n_checkpoints']} checkpoints, stall "
+        f"{straight['checkpoint_stall_s']:.4f} s "
+        f"({straight['checkpoint_overhead_pct']:.3f}%); set-up "
+        f"{straight['setup_s']:.3f} s; phase {wall:.3f} s; launches "
+        f"{runs['straight']}")
+
+    t0 = time.perf_counter()
+    p = subprocess.run(sus.child_argv("kill", cfg, d, str(dev)), cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 1, f"12b: the kill child exited {p.returncode}: "
+          f"{p.stderr[-3000:]}")
+    with open(os.path.join(d, "kill.json")) as f:
+        kill = json.load(f)
+    check(kill["killed_at_batch"] == cfg.kill_after, "12b: killed at 56")
+    runs["kill"] = kill["launches"]
+    check(runs["kill"] == {"wire_keys": 0,
+                           "segment_counts": cfg.kill_after + 1},
+          f"12b: the kill child's launches {runs['kill']}")
+    log(f"12b kill: os._exit(1) after {kill['killed_at_batch']} batches, "
+        f"{kill['wall_s']:.3f} s in, {kill['n_checkpoints']} checkpoints "
+        f"landed (batch {kill['checkpoint_batches_done']}); child "
+        f"{wall:.3f} s with start-up")
+
+    t0 = time.perf_counter()
+    p = subprocess.run(sus.child_argv("resume", cfg, d, str(dev)), cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"12b: the resume child exited "
+          f"{p.returncode}: {p.stderr[-3000:]}")
+    resume = json.loads(p.stdout.strip().splitlines()[-1])
+    check(resume["start_batch"] >= cfg.ckpt_every
+          and resume["steps_run_this_process"] > 0,
+          f"12b: resumed at batch {resume['start_batch']}")
+    check(resume["resumed_equals_straight"] and resume["oracle_equal"]
+          and resume["totals_exact"], "12b: the resume's checks")
+    check(resume["distinct"] == sus.FULL_DISTINCT or not full,
+          "12b: 999,980 groups")
+    runs["resume"] = resume["launches"]
+    check(runs["resume"] == {
+        "wire_keys": 0,
+        "segment_counts": resume["steps_run_this_process"] + 1},
+        f"12b: the resume child's launches {runs['resume']}")
+    log(f"12b resume: from batch {resume['start_batch']}, "
+        f"{resume['steps_run_this_process']} batches in "
+        f"{resume['wall_s']:.3f} s = {resume['kmers_per_s_sustained']:.1f} "
+        f"k-mers/s; child {wall:.3f} s with start-up; equal to the straight "
+        f"table bit for bit and to the numpy oracle ({resume['distinct']} "
+        f"groups); launches {runs['resume']}")
+    return {name: sum(r[name] for r in runs.values())
+            for name in runs["straight"]}
+
+
+def top_rows(keys: np.ndarray, counts: np.ndarray, top: int) -> list:
+    """The CLI's first ``top`` rows of an oracle: by descending count,
+    then ascending key."""
+    from kmer_tpu_torch.packed import PackedKmers
+
+    order = np.argsort(-counts, kind="stable")[:top]
+    k = keys[order]
+    strs = PackedKmers(hi=(k >> np.uint64(32)).astype(np.uint32),
+                       lo=(k & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                       length=np.full(k.size, K, np.int32)).to_strings()
+    return [[s, int(c)] for s, c in zip(strs, counts[order])]
+
+
+def ingest_case(dev, tmp: str, run: tuple, **ckpt_kw) -> dict:
+    """12c: ``runs.ingest``'s count under the RSS budget and its
+    checkpointed kill and resume, on 8a's FASTQ (``ckpt_kw``: a smaller
+    batch and interval for a rehearsal); returns the children's
+    launches."""
+    from kmer_tpu_torch.runs import ingest
+
+    path, keys, counts = run
+    d = os.path.join(tmp, "ingest")
+    os.makedirs(d, exist_ok=True)
+    big, failed = ingest.big_phase(path, d, 4000, str(dev), full=False)
+    raw, base, libs = (big["big_child_peak_rss_bytes"],
+                       big["big_child_baseline_rss_bytes"],
+                       big["big_child_baseline_library_rss_bytes"])
+    # a raw 4 GB check fails on a host that counts every page of
+    # a mapped library as resident: it is printed, and the gate is the
+    # peak less an idle child's resident library pages (PERF.md section 4)
+    check(raw - libs < 4e9, f"12c: the count's peak RSS less an idle "
+          f"child's library pages: {raw} - {libs} B, under 4 GB")
+    check(big["big_distinct"] == keys.size
+          and big["big_total_kmers"] == int(counts.sum()),
+          "12c: the count's groups and total equal 8a's oracle")
+    check(big["big_top3"] == top_rows(keys, counts, 3),
+          f"12c: top rows {big['big_top3']}")
+    runs = {"count": big["big_launches"]}
+    log(f"12c count: {big['big_file_gb']:.3f} GB in "
+        f"{big['big_count_wall_s']:.3f} s with start-up "
+        f"({big['big_count_s_in_child']} s counting, "
+        f"{big['big_feed_gb_per_s']:.4f} GB/s); peak RSS {raw} bytes, an "
+        f"idle child's (torch, the CLI, the card) {base}, {libs} of it "
+        f"shared libraries' pages; the peak less those {raw - libs} "
+        f"(budget 4 GB); checks that failed: {failed or 'none'} (raw 4 GB "
+        f"{'passed' if raw < 4e9 else 'FAILED'}); groups, total and top 3 "
+        f"equal 8a's oracle; launches {runs['count']}")
+
+    rec, failed = ingest.ckpt_phase(path, d, str(dev), **ckpt_kw)
+    check(not failed, f"12c: {failed}")
+    hi, lo, length, c64 = ingest.load_table(os.path.join(d,
+                                                         "straight.ck.npz"))
+    got = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    check(np.array_equal(got, keys) and np.array_equal(c64, counts)
+          and bool((length == K).all()),
+          "12c: the straight count --ckpt table equals 8a's oracle")
+    runs.update(rec["launches"])
+    for name, n in runs.items():
+        check(min(n.values()) >= 1, f"12c {name}: launches {n}")
+    log(f"12c ckpt: the CLI's count --ckpt (defaults, a checkpoint every "
+        f"60 s) {rec['straight_wall_s']:.3f} s with start-up "
+        f"({rec['straight_count_s_in_child']} s counting, "
+        f"{rec['straight_batches']} batches) wrote "
+        f"{rec['cli_default_checkpoints_written']} checkpoint(s); its table "
+        f"equals 8a's oracle; a count_file child checkpointing every "
+        f"{rec['ckpt_every_s']:.3f} s was killed {rec['kill_after_s']:.3f} "
+        f"s in after {rec['checkpoints_landed_before_kill']} checkpoints "
+        f"(batch {rec['killed_checkpoint_batches_done']}); the resume ran "
+        f"batches {rec['resumed_from_batch'] + 1}-{rec['straight_batches']}"
+        f" in {rec['resume_wall_s']:.3f} s with start-up and equals the "
+        f"straight table bit for bit; launches {rec['launches']}")
+    return {name: sum(r[name] for r in runs.values())
+            for name in runs["count"]}
+
+
+def long_runs_phase(dev, tmp: str, entry_want: dict, run: tuple) -> dict:
+    """Phase 12; returns the count path's launches by case."""
+    launches = {}
+    for tag, fn, args in (("12a", entry_case, (entry_want,)),
+                          ("12b", sustained_case, (dev, tmp)),
+                          ("12c", ingest_case, (dev, tmp, run))):
+        t0 = time.perf_counter()
+        launches[tag] = fn(*args)
+        log(f"{tag} in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2126,7 +2355,7 @@ def main() -> int:
         worst = probe_edges(dev)
         next(e for e in entries if e["name"] == "segment_copy")[
             "overlap_worst_case"] = worst
-        bench_launches, chr_distinct = bench_on_card(
+        bench_launches, chr_distinct, entry_want = bench_on_card(
             dev, main_table.distinct(), cov_table.distinct())
         t0 = time.perf_counter()
         fold_launches, run = fold_phase(dev, tmp, main_fastq, main_table,
@@ -2147,7 +2376,11 @@ def main() -> int:
         multi_launches = multi_phase(tmp, main_fastq, main_table, run)
         log(f"phase 11: multi-device on the card in "
             f"{time.perf_counter() - t0:.1f} s ({card})")
-    log(f"chip_smoke: phases 1-11 passed in "
+        t0 = time.perf_counter()
+        long_launches = long_runs_phase(dev, tmp, entry_want, run)
+        log(f"phase 12: the long runs in {time.perf_counter() - t0:.1f} s "
+            f"({card})")
+    log(f"chip_smoke: phases 1-12 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def by_path(name):
@@ -2158,7 +2391,10 @@ def main() -> int:
                 **{f"engine ({c})": n[name]
                    for c, n in engine_launches.items()},
                 **{f"multi ({c})": n[name]
-                   for c, n in multi_launches.items()}}
+                   for c, n in multi_launches.items()},
+                "entry (12a)": long_launches["12a"][name],
+                "sustained (12b)": long_launches["12b"][name],
+                "ingest (12c)": long_launches["12c"][name]}
 
     main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{

@@ -80,13 +80,14 @@ def _cmd_extract(args) -> int:
 def _cmd_count(args) -> int:
     from .api import KmerTable
     from .ops.wide import WideCounts
-    from .packed import PackedKmers
+    from .packed import PackedKmers, hi_lo_from_key
     from .pipeline import (
         column_batch_feed,
         count_batches_pipelined,
         count_file,
         initial_capacity,
     )
+    from .kernels import launches
     from .utils.logging import StatsCounters, get_logger
 
     log = get_logger()
@@ -121,24 +122,16 @@ def _cmd_count(args) -> int:
         result = table.group_by_kmer()
         stats.record_batch(len(table), 0, result.total(), result.distinct())
     log.info("stats %s", stats.to_json())
-    # trimmed rows are in ascending key order, so a stable sort by -count
-    # keeps ties key-ascending; only the printed rows are decoded
-    t = result.trim()
-    if isinstance(t, WideCounts):
-        hi, lo, length, _, _ = t.to_numpy()
-        c64 = t.counts64()
-    else:
-        hi, lo, length, counts = t.to_numpy()
-        c64 = counts.astype(np.int64)
-    order = np.argsort(-c64, kind="stable")
-    if args.top:
-        order = order[: args.top]
-    strs = PackedKmers(hi=hi, lo=lo, length=length)[order].to_strings()
-    for kmer, count in zip(strs, c64[order]):
+    log.info("launches %s", json.dumps(launches()))
+    keys, length, c64, distinct, total = _printed_rows(result, args.top)
+    hi, lo = hi_lo_from_key(keys)
+    strs = PackedKmers(hi=hi, lo=lo, length=length).to_strings()
+    for kmer, count in zip(strs, c64):
         print(f"{kmer}\t{int(count)}")
-    print(f"# {c64.size} distinct, {int(c64.sum())} total", file=sys.stderr)
+    print(f"# {distinct} distinct, {total} total", file=sys.stderr)
     if args.save:
         meta = {"k": args.k, "canonical": args.canonical}
+        t = result.trim()
         if isinstance(t, WideCounts):
             from .parallel.streaming import save_wide
 
@@ -149,6 +142,26 @@ def _cmd_count(args) -> int:
             save_table(t, args.save, meta)
         log.info("saved table to %s", args.save)
     return 0
+
+
+def _printed_rows(result, top: int):
+    """(keys, lengths, 64-bit counts) of the rows ``count`` prints, as
+    numpy, by descending count and then ascending key, and the table's
+    (distinct, total).  Live rows sit in ascending key order, so a stable
+    sort by -count keeps ties key-ascending; it runs on the result's
+    device, and with ``top`` only the printed rows come to the host."""
+    import torch
+
+    live = torch.nonzero(result.counts > 0).squeeze(1)
+    counts = result.counts[live].to(torch.int64)
+    order = torch.sort(-counts, stable=True).indices
+    if top:
+        order = order[:top]
+    rows = live[order]
+    return (result.keys[rows].cpu().numpy(),
+            result.length[rows].cpu().numpy().astype(np.int32),
+            counts[order].cpu().numpy(), int(live.numel()),
+            int(counts.sum()))
 
 
 def _cmd_query(args) -> int:
@@ -511,9 +524,8 @@ def _cmd_distcount(args) -> int:
     import torch
     import torch.distributed as dist
 
-    from .kernels.segment_counts import segment_counts
-    from .kernels.wire_keys import wire_keys
     from .parallel.comm import STAGED
+    from .kernels import launches
 
     dev = torch.device(args.device)
     print(json.dumps({  # ``local`` holds its live rows alone
@@ -527,8 +539,7 @@ def _cmd_distcount(args) -> int:
             "merge_efficiency": stats.merge_efficiency,
             "peak_device_bytes": (torch.cuda.max_memory_allocated()
                                   if dev.type == "cuda" else None),
-            "launches": {"wire_keys": wire_keys.launches,
-                         "segment_counts": segment_counts.launches},
+            "launches": launches(),
             "staged_collectives": sorted(STAGED),
         },
     }), flush=True)

@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels for Hopper and their wrappers.
+
+Each wrapper counts the launches of its kernel in its ``launches``
+attribute.  ``launches`` and ``zero_launches`` read and reset those of the
+count path's two kernels, for the CLI, the long runs and the chip smoke.
+"""
+
+from __future__ import annotations
+
+
+def count_path_kernels() -> dict:
+    """The wrappers of the count path's kernels, by name."""
+    from .segment_counts import segment_counts
+    from .wire_keys import wire_keys
+
+    return {"wire_keys": wire_keys, "segment_counts": segment_counts}
+
+
+def launches() -> dict:
+    """The count path's kernel launches in this process so far."""
+    return {name: fn.launches for name, fn in count_path_kernels().items()}
+
+
+def zero_launches() -> None:
+    for fn in count_path_kernels().values():
+        fn.launches = 0

@@ -15,7 +15,8 @@ import os
 import numpy as np
 import torch
 
-from .errors import InvalidDnaSequenceError
+from .codec import MAX_K
+from .errors import InvalidDnaSequenceError, InvalidKmerLengthError
 from .kernels.build import native_library
 
 _lib = None
@@ -113,8 +114,11 @@ def rows_packed(codes: np.ndarray, offsets: np.ndarray, width: int,
     (words [rows, width/16] uint32, lengths [rows] uint16).
 
     Reads longer than ``width`` split into pieces sharing a k-1 base
-    overlap, so every window lands in exactly one row.
+    overlap, so every window lands in exactly one row.  k outside [1, 32]
+    raises the engine's "Invalid KMER Length" before any other check.
     """
+    if not 1 <= k <= MAX_K:
+        raise InvalidKmerLengthError()
     if width % 16 or width <= k - 1:
         raise ValueError(f"width {width} must be a multiple of 16 > k-1")
     if width > 0xFFFF:

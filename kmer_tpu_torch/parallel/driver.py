@@ -31,6 +31,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..codec import MAX_K
+from ..errors import InvalidKmerLengthError
 from ..ops.wide import WideCounts, merge_runs, pad_wide
 from ..utils.logging import StatsCounters, get_logger
 from .comm import all_gather_tiled, all_reduce_sum
@@ -169,6 +171,8 @@ def run_distcount(
 
     from .multihost import initialize_multihost, make_pod_mesh
 
+    if not 1 <= k <= MAX_K:  # before any rank joins a process group
+        raise InvalidKmerLengthError()
     log = get_logger()
     if any(x is not None for x in (coordinator, num_processes, process_id)):
         if backend is None:

@@ -338,9 +338,12 @@ def save_pipeline_ckpt(acc: WideCounts, path: str, batches_done: int,
                        k: int, canonical: bool,
                        batch: int | None = None,
                        width: int | None = None) -> None:
-    """Confirmed-point checkpoint in ``save_wide``'s layout.  k, canonical,
-    batch and width are recorded so that a resume with other flags fails
-    instead of folding mismatched windows or skipping the wrong reads."""
+    """Confirmed-point checkpoint in ``save_wide``'s layout, uncompressed
+    (zlib takes seconds for every 10M rows, and a checkpoint is written
+    while the count waits or runs beside it; either package loads it).
+    k, canonical, batch and width are recorded so that a resume with
+    other flags fails instead of folding mismatched windows or skipping
+    the wrong reads.  Logs one line a checkpoint written."""
     from .parallel.streaming import save_wide
 
     save_wide(acc, path, {
@@ -351,7 +354,9 @@ def save_pipeline_ckpt(acc: WideCounts, path: str, batches_done: int,
         "canonical": canonical,
         "batch": batch,
         "width": width,
-    })
+    }, compress=False)
+    get_logger().info("pipeline: checkpoint at batch %d written to %s",
+                      batches_done, path)
 
 
 class _PipelineRun:

@@ -26,7 +26,9 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from .codec import MAX_K
 from .device import resolve_device
+from .errors import InvalidKmerLengthError
 from .kernels.wire_keys import wire_keys
 from .native import pack2bit_rows
 from .ops.count import count_windows
@@ -103,6 +105,8 @@ def count_long_sequence(
     snapshots stay small enough to checkpoint; returns its WideCounts.
     """
     device = resolve_device(device)
+    if not 1 <= k <= MAX_K:
+        raise InvalidKmerLengthError()
     codes = np.ascontiguousarray(codes, np.uint8)
     n = int(codes.shape[0])
     if chunk % 16:

@@ -198,8 +198,11 @@ def test_new_modules_import_no_jax():
         "import kmer_tpu_torch.parallel.driver\n"
         "import kmer_tpu_torch.parallel.shindex\n"
         "import kmer_tpu_torch.parallel.query, kmer_tpu_torch.bench\n"
+        "import kmer_tpu_torch.bench_entry, kmer_tpu_torch.runs.sustained\n"
+        "import kmer_tpu_torch.runs.ingest, kmer_tpu_torch.runs.common\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'kmer_tpu'))\n"
+        "('jax', 'jaxlib', 'kmer_tpu', 'scripts', 'probe_ingest_rss', "
+        "'sustained_r4'))\n"
         "assert not bad, bad\n"
     )
     got = subprocess.run([sys.executable, "-c", code], cwd=REPO,
