@@ -9,7 +9,7 @@ Phases, each of which must pass or the script exits nonzero:
 2. build: compiles the six kernel libraries (nvcc) and the host parser
    (cc) from the sources in this checkout, one compiler each at once, and
    prints ptxas's registers and spills (none allowed in the stage, copy,
-   gather and wire-key kernels);
+   gather, wire-key and row-sort kernels);
 3. kernel vs plain: the segment-count kernel must equal its plain PyTorch
    version exactly on the cases of tests/test_pallas.py, at the edges of
    its tiles (on aligned tensors and on views 8 bytes past 16), and at
@@ -135,7 +135,23 @@ Phases, each of which must pass or the script exits nonzero:
    ``count --ckpt`` straight (its final checkpoint equal to the oracle), a ``count_file`` child
    checkpointing every sixth of that count's seconds, killed with
    SIGKILL once two checkpoints have landed, and resumed: it skips at
-   least one batch and its table equals the straight one.
+   least one batch and its table equals the straight one;
+13. the sort probes and the sample-partition engine, each family with
+   the launch counts of ``row_sort``, ``segment_copy``, ``segment_counts``
+   and ``wire_keys`` set to 0 before it and read after: (a) the
+   ``sorting`` family at full size (the global and row sorts of
+   probe_sort.py, probe_r2.py C, probe_r3a.py A-D and probe_r3b.py 3 on
+   ``row_sort`` where a row fits, beside ``torch.sort(dim=1)``, or on
+   ``torch.sort`` alone; searchsorted; the block gathers on
+   ``segment_copy``; the per-row counts; the monotone gather); (b) the
+   ``partition`` family: probe_r3c.py's engines A and B and the port's C
+   (stage 1 on ``row_sort``) on its uniform and coverage lanes at N =
+   136,314,880, each trimmed table and r3c's four scalars equal to
+   ``count_windows`` on the same keys, ``row_sort``, ``segment_copy`` and
+   ``segment_counts`` all launched; (c) ``row_sort`` equal to its plain
+   version at config C's stage-1 rows, [8320, 16384] int64, and timed
+   there in a CUDA graph (cold L2) beside ``torch.sort(dim=1)`` and its
+   byte bound.  ptxas must report no spill in ``row_sort.cu`` (phase 2).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -657,6 +673,9 @@ PROBE_KERNELS = {
 }
 
 
+PROBE_FAMILIES = ("capability", "rates", "copies")  # phase 13 runs the rest
+
+
 def probes(dev) -> list[dict]:
     """The probes' path with the counts at 0 before it; returns the
     kernels-line entries of the four probe kernels."""
@@ -671,7 +690,7 @@ def probes(dev) -> list[dict]:
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    records = run_all(dev, echo=log)
+    records = run_all(dev, only=PROBE_FAMILIES, echo=log)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     log(f"probes: {len(records)} probes in {time.perf_counter() - t0:.1f} s;"
         f" launches {launches}")
@@ -2314,6 +2333,74 @@ def long_runs_phase(dev, tmp: str, entry_want: dict, run: tuple) -> dict:
     return launches
 
 
+# --- phase 13: the sort probes and the sample-partition engine -------------
+
+STAGE1_SHAPE = (8320, 1 << 14)  # config C's stage-1 rows, int64
+SORT_PHASE_BUDGET_S = 90
+
+
+def sort_phase(dev) -> tuple[dict, dict]:
+    """Phase 13; returns the launches by family of the four kernels it
+    counts, and row_sort's record at config C's stage-1 shape."""
+    import torch
+
+    from kmer_tpu_torch.kernels.row_sort import row_sort, row_sort_reference
+    from kmer_tpu_torch.kernels.segment_copy import segment_copy
+    from kmer_tpu_torch.kernels.segment_counts import segment_counts
+    from kmer_tpu_torch.kernels.wire_keys import wire_keys
+    from kmer_tpu_torch.probes import partition, sorting
+    from kmer_tpu_torch.probes.common import bound_ms, graph_ms, max_abs_err
+
+    wrappers = {"row_sort": row_sort, "segment_copy": segment_copy,
+                "segment_counts": segment_counts, "wire_keys": wire_keys}
+    launches, summary = {}, []
+    for family in (sorting, partition):
+        tag = f"{family.__name__.rsplit('.', 1)[-1]} (13)"
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = []
+        for rec in family.run(dev):
+            log(rec.line())
+            records.append(rec)
+        launches[tag] = {name: fn.launches for name, fn in wrappers.items()}
+        bad = [r.name for r in records if not r.correct]
+        check(not bad, f"13 {tag}: every probe correct (not: {bad})")
+        log(f"13 {tag}: {len(records)} probes in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches[tag]}")
+        summary += [{key: getattr(r, key) for key in (
+            "name", "kernel", "ms", "plain_ms", "graph_ms", "bound_ms",
+            "bound_by", "library_ms", "detail")} for r in records]
+    for name in ("row_sort", "segment_copy"):
+        check(launches["sorting (13)"][name] > 0,
+              f"13: the sorting probes launched {name}")
+    for name in ("row_sort", "segment_copy", "segment_counts"):
+        check(launches["partition (13)"][name] > 0,
+              f"13: the partition engines launched {name}")
+    print(json.dumps({"phase13": summary}), flush=True)
+
+    x = partition.make_lanes(False, dev).view(*STAGE1_SHAPE)
+    got, ref = row_sort(x), row_sort_reference(x)
+    err = max_abs_err(got.view(torch.int32), ref.view(torch.int32))
+    check(err == 0, f"13: row_sort == plain at {list(x.shape)} int64")
+    del got, ref
+    bound, by = bound_ms(2 * x.nbytes, sorting.sort_ops(x.numel(),
+                                                        x.shape[1]), dev)
+    own = graph_ms(lambda: row_sort(x), dev, cold=True)
+    lib = graph_ms(lambda: torch.sort(x, dim=1), dev, cold=True)
+    at_stage1 = {"shape": list(x.shape), "dtype": "int64",
+                 "max_abs_err": float(err), "ms": own, "bound_ms": bound,
+                 "bound_by": by, "library": "torch.sort(x, dim=1)",
+                 "library_ms": lib, "pct_of_bound": 100 * bound / own}
+    log(f"13c: row_sort at config C's stage 1 {list(x.shape)} int64: "
+        f"{own:.4f} ms in a CUDA graph (cold L2), bound {bound:.4f} ms "
+        f"({by}, {100 * bound / own:.1f}%), torch.sort(dim=1) {lib:.4f} ms")
+    del x
+    partition.make_lanes.cache_clear()
+    torch.cuda.empty_cache()
+    return launches, at_stage1
+
+
 def main() -> int:
     import torch
 
@@ -2343,7 +2430,8 @@ def main() -> int:
     for m in libraries:
         stem = m.__name__.rsplit(".", 1)[-1]
         log(f"ptxas, {stem}.cu: {ptxas_report(stem)}")
-    for stem in ("tile_stages", "segment_copy", "tile_gather", "wire_keys"):
+    for stem in ("tile_stages", "segment_copy", "tile_gather", "wire_keys",
+                 "row_sort"):
         check_no_spills(stem)
 
     timing = kernel_cases(dev)
@@ -2380,7 +2468,12 @@ def main() -> int:
         long_launches = long_runs_phase(dev, tmp, entry_want, run)
         log(f"phase 12: the long runs in {time.perf_counter() - t0:.1f} s "
             f"({card})")
-    log(f"chip_smoke: phases 1-12 passed in "
+    t0 = time.perf_counter()
+    sort_launches, at_stage1 = sort_phase(dev)
+    log(f"phase 13: the sort probes and the partition engines in "
+        f"{time.perf_counter() - t0:.1f} s (budget {SORT_PHASE_BUDGET_S} s; "
+        f"{card})")
+    log(f"chip_smoke: phases 1-13 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def by_path(name):
@@ -2394,7 +2487,17 @@ def main() -> int:
                    for c, n in multi_launches.items()},
                 "entry (12a)": long_launches["12a"][name],
                 "sustained (12b)": long_launches["12b"][name],
-                "ingest (12c)": long_launches["12c"][name]}
+                "ingest (12c)": long_launches["12c"][name],
+                **{path: n[name] for path, n in sort_launches.items()}}
+
+    for entry in entries:  # the probe kernels that phase 13 launches too
+        if entry["name"] in ("row_sort", "segment_copy"):
+            entry["launches_by_path"] = {
+                "probes (6)": entry["launches"],
+                **{path: n[entry["name"]]
+                   for path, n in sort_launches.items()}}
+        if entry["name"] == "row_sort":
+            entry["at_stage1"] = at_stage1
 
     main_shape = {k: v for k, v in timing["main path"].items() if k != "n"}
     print(json.dumps({"kernels": [{

@@ -1,6 +1,7 @@
 """python -m kmer_tpu_torch.probes [--only FAMILY] [--device cuda] [--small]
 
-Runs the ported Pallas probes and exits 1 if any probe is not correct.
+Runs the ported probes (FAMILY: capability, rates, copies, sorting or
+partition; all by default) and exits 1 if any probe is not correct.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
     p.add_argument("--small", action="store_true",
-                   help="fewer tiles, chained launches and copies (never a "
-                   "tile's shape), for a quick run on the CPU")
+                   help="fewer tiles, chained launches, copies and keys "
+                   "(never a tile's or a row sort's width), for a quick run "
+                   "on the CPU")
     args = p.parse_args(argv)
     records = run_all(args.device, only=args.only, small=args.small)
     bad = [r.name for r in records if not r.correct]

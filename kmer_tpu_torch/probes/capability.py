@@ -21,7 +21,7 @@ from ..kernels.tile_gather import tile_gather, tile_gather_reference
 from ..kernels.tile_stages import tile_stages, tile_stages_reference
 from ..kernels.words import to_u32
 from .common import (
-    Record, copy_library, host, max_abs_err, time_ms, words)
+    Record, copy_library, host, max_abs_err, sort_ops, time_ms, words)
 
 R, L = 64, 128
 ITERS = 20
@@ -105,15 +105,11 @@ def dynamic_roll_lanes(device):
 def _sort(name, device, x):
     xt = words(x, device)
     unsigned = to_u32(xt)  # torch sorts int64, not uint32
-    width = x.shape[1]
-    stages = int(np.log2(width)) * (int(np.log2(width)) + 1) // 2
-    # a bitonic network: width / 2 compare-exchanges (a min and a max) a
-    # row per stage
     return _record(
         name, "row_sort", P2, device,
         lambda: row_sort(xt), lambda: row_sort_reference(xt),
         lambda got: np.array_equal(host(got), np.sort(x, axis=1)),
-        2 * x.nbytes, x.shape[0] * width * stages,
+        2 * x.nbytes, sort_ops(x.size, x.shape[1]),
         "torch.sort(x, dim=-1) on the unsigned values as int64",
         lambda: torch.sort(unsigned, dim=-1))
 

@@ -30,10 +30,11 @@ class Record:
     largest difference between wrapper and plain version, word for word,
     as unsigned 32-bit integers.  ``ms`` / ``plain_ms``: one call of the
     wrapper / of the plain version (on the CPU the wrapper is the plain
-    version).  ``ops`` is the script's operation count for a rate (stages
-    times words), printed as G ``ops_label``/s, and ``copies`` /
-    ``nbytes`` the copies and bytes moved (read + write) for a copy
-    family.
+    version; None where the probe times a library call alone).  ``ops``
+    is the script's operation count for a rate (stages times words),
+    printed as G ``ops_label``/s, and ``copies`` / ``nbytes`` the copies
+    and bytes moved (read + write) for a copy family.  ``detail``: what
+    else the probe measured, printed after the times.
 
     On a card, ``graph_ms`` is one kernel call's own time, from many calls
     captured in one CUDA graph (no host launch cost; where bytes set the
@@ -53,7 +54,7 @@ class Record:
     correct: bool
     max_abs_err: int
     ms: float
-    plain_ms: float
+    plain_ms: float | None
     ops: int | None = None
     ops_label: str = "ops"
     copies: int | None = None
@@ -63,10 +64,12 @@ class Record:
     bound_by: str | None = None
     library: str | None = None
     library_ms: float | None = None
+    detail: dict | None = None
 
     def line(self) -> str:
         """The human-readable line the probe prints."""
-        who = "kernel" if self.device.startswith("cuda") else "wrapper"
+        who = ("library" if self.kernel == "library"
+               else "kernel" if self.device.startswith("cuda") else "wrapper")
         if self.family == "capability":
             return "; ".join(
                 [f"{self.name}: OK correct: {self.correct}  ({who} "
@@ -74,6 +77,8 @@ class Record:
                 + self._own())
         parts = [f"{self.name}: correct: {self.correct}"]
         for who, ms in ((who, self.ms), ("plain", self.plain_ms)):
+            if ms is None:
+                continue
             s = f"{who} {ms:.4f} ms"
             if self.ops:
                 s += f" -> {self.ops / ms / 1e6:.3f} G {self.ops_label}/s"
@@ -81,6 +86,9 @@ class Record:
                 s += (f" -> {self.copies / ms * 1e3:.1f} copies/s, "
                       f"{self.nbytes / ms / 1e6:.3f} GB/s")
             parts.append(s)
+        if self.detail:
+            parts.append(", ".join(f"{k} {v}" for k, v in
+                                   self.detail.items()))
         return "; ".join(parts + self._own())
 
     def _own(self) -> list[str]:
@@ -229,6 +237,13 @@ def bound_ms(nbytes: int, ops: int, device: torch.device
     by_ops = 1e3 * ops / int32_ops_per_s(device)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def sort_ops(n: int, width: int) -> int:
+    """Comparisons that sorting ``n`` keys in rows of ``width`` needs,
+    about n log2(width), counted as one int32 operation each (a floor: a
+    64-bit compare takes more)."""
+    return n * max(1, width.bit_length() - 1)
 
 
 def words(a: np.ndarray, device: torch.device) -> torch.Tensor:

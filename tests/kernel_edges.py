@@ -145,3 +145,61 @@ def wire_case(width: int, k: int, rows: int = 12, seed: int = 0):
     lengths[0], lengths[1], lengths[2] = 0, width, max(k - 1, 0)
     lengths[3] = width
     return codes, lengths
+
+
+# row_sort: int64 keys (signed order) and 32-bit words (unsigned order);
+# a kernel block takes a tile of ROW_SORT_TILE[key bytes] keys, one row or
+# several whole rows, or, for a small sort of rows that fit it, one warp's
+# tile of ROW_SORT_WARP_TILE[key bytes]
+ROW_SORT_TILE = {8: 16384, 4: 32768}
+ROW_SORT_WARP_TILE = {8: 512, 4: 1024}
+ROW_SORT_CASES = ["all_equal", "all_sentinel", "all_flipped_sentinel",
+                  "top_heavy", "top_bit_mixed", "descending", "few_values",
+                  "width_1", "width_2", "widest", "one_row", "partial_tile",
+                  "partial_warp_tile"]
+
+
+def row_sort_case(name: str, key_bytes: int, seed: int = 0) -> np.ndarray:
+    """Rows [n_rows, width] of int64 keys (key_bytes 8) or uint32 words
+    (4) for a row_sort edge case.  The sentinel is the count path's
+    all-ones key (-1 as int64) and its flipped form (the largest int64);
+    ``top_bit_mixed`` sets the top bit of half the keys (signed order puts
+    them first for int64 and last for words); ``top_heavy`` makes half
+    the keys the dtype's largest value (the engine's pads), which the
+    kernel also reads for a run it has used up; ``partial_tile`` leaves
+    the last full block 5 of its 16 rows, and ``partial_warp_tile`` the
+    last one-warp block 3 rows of 128."""
+    rng = np.random.default_rng(seed + sum(map(ord, name)) + key_bytes)
+    tile = ROW_SORT_TILE[key_bytes]
+    dtype = np.int64 if key_bytes == 8 else np.uint32
+    top = np.iinfo(dtype).max
+
+    def rand(shape):
+        bits = rng.integers(0, 1 << 63, shape, dtype=np.int64)
+        if key_bytes == 4:
+            return (bits & 0xFFFFFFFF).astype(np.uint32)
+        return bits ^ np.where(rng.random(shape) < 0.5, np.int64(-1 << 63),
+                               np.int64(0))
+
+    shape = {"width_1": (300, 1), "width_2": (1000, 2),
+             "widest": (3, tile), "one_row": (1, 4096),
+             "partial_tile": (21, tile // 16),
+             "partial_warp_tile": (ROW_SORT_WARP_TILE[key_bytes] // 128 + 3,
+                                   128)}.get(name, (5, 2048))
+    if name == "all_equal":
+        return np.full(shape, 7, dtype)
+    if name == "all_sentinel":
+        return np.full(shape, -1 if key_bytes == 8 else top, dtype)
+    if name == "all_flipped_sentinel":
+        return np.full(shape, top, dtype)
+    if name == "few_values":
+        return rng.integers(0, 5, shape).astype(dtype)
+    x = rand(shape)
+    if name == "top_bit_mixed":
+        bit = dtype(1 << 31) if key_bytes == 4 else np.int64(-1 << 63)
+        x = np.where(rng.random(shape) < 0.5, x | bit, x & ~bit)
+    if name == "top_heavy":
+        x = np.where(rng.random(shape) < 0.5, top, x)
+    if name == "descending":
+        x = np.sort(x, axis=1)[:, ::-1]
+    return np.ascontiguousarray(x, dtype)

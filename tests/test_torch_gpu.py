@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from kmer_tpu_torch.kernels.row_sort import row_sort, row_sort_reference
+from kmer_tpu_torch.kernels.row_sort import (
+    MAX_WIDTH, build as build_row_sort, row_sort, row_sort_reference)
 from kmer_tpu_torch.kernels.segment_copy import (
     copy_plan, segment_copy, segment_copy_reference)
 from kmer_tpu_torch.kernels.segment_counts import (
@@ -30,8 +31,8 @@ from kmer_tpu_torch.native import pack2bit_rows
 from kmer_tpu_torch.packed import SIGN_FLIP
 from kernel_edges import (
     EDGES, GATHER_SHAPES, GATHER_STEPS, GATHER_TABLES, LARGE, OVERLAP_PLANS,
-    SCHEDULES, STAGE_SHAPES, WIRE_KS, WIRE_WIDTHS, edge_runs, gather_case,
-    overlap_plan, stage_shape_id, wire_case)
+    ROW_SORT_CASES, SCHEDULES, STAGE_SHAPES, WIRE_KS, WIRE_WIDTHS, edge_runs,
+    gather_case, overlap_plan, row_sort_case, stage_shape_id, wire_case)
 
 L = 128
 
@@ -198,6 +199,63 @@ def test_tile_stages_kernel_matches_plain_on_cuda(op, axis):
 def test_row_sort_kernel_matches_plain_on_cuda(width):
     dev = _cuda()
     x = _t(_u32((37, width), 5)).to(dev)
+    assert torch.equal(row_sort(x), row_sort_reference(x))
+
+
+def _rows(a):
+    """numpy rows -> torch: int64 as it is, uint32 as int32 bits."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.dtype == np.int64 else a.view(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key_bytes", [8, 4])
+@pytest.mark.parametrize("case", ROW_SORT_CASES)
+def test_row_sort_kernel_edges_on_cuda(case, key_bytes):
+    """int64 rows in signed order, words in unsigned order, at the edges of
+    tests/kernel_edges.py (the widest row, width 1 and 2, a partly full
+    last block, sentinels, the top bit)."""
+    dev = _cuda()
+    x = _rows(row_sort_case(case, key_bytes)).to(dev)
+    before = row_sort.launches
+    got = row_sort(x)
+    assert row_sort.launches == before + 1
+    assert torch.equal(got, row_sort_reference(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, width, rows", [
+    (torch.int64, 2048, 65), (torch.int64, 8192, 33), (torch.int64, 16384, 9),
+    (torch.int32, 2048, 64), (torch.int32, 8192, 17), (torch.int32, 32768, 5),
+    (torch.uint32, 64, 1000), (torch.int64, 128, 20000),
+    (torch.int32, 256, 20000)])
+def test_row_sort_kernel_engine_widths_on_cuda(dtype, width, rows):
+    """The engine's and the sweep's widths, with as many rows as fill
+    several blocks (at widths 128 and 256 enough to take full blocks, not
+    one-warp ones); the built library reports the wrapper's limits."""
+    dev = _cuda()
+    lib = build_row_sort()
+    assert lib.row_sort_max_width(8) == MAX_WIDTH[8]
+    assert lib.row_sort_max_width(4) == MAX_WIDTH[4]
+    gen = torch.Generator(device=dev).manual_seed(width + rows)
+    lo, hi = (-(1 << 63), (1 << 63) - 1) if dtype == torch.int64 else (
+        -(1 << 31), (1 << 31) - 1)
+    x = torch.randint(lo, hi, (rows, width), dtype=torch.int64, device=dev,
+                      generator=gen).to(dtype)
+    assert torch.equal(row_sort(x), row_sort_reference(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, width", [(torch.int64, 2), (torch.int64, 512),
+                                          (torch.int32, 4), (torch.int32, 1)])
+def test_row_sort_kernel_on_a_view_off_16_bytes(dtype, width):
+    """A contiguous view one key past a 16-byte boundary takes the
+    kernel's scalar loads and stores."""
+    dev = _cuda()
+    buf = torch.randint(-(1 << 30), 1 << 30, (300 * width + 1,),
+                        dtype=torch.int64, device=dev).to(dtype)
+    x = buf[1:].view(300, width)
+    assert x.data_ptr() % 16
     assert torch.equal(row_sort(x), row_sort_reference(x))
 
 
