@@ -151,7 +151,30 @@ Phases, each of which must pass or the script exits nonzero:
    ``segment_counts`` all launched; (c) ``row_sort`` equal to its plain
    version at config C's stage-1 rows, [8320, 16384] int64, and timed
    there in a CUDA graph (cold L2) beside ``torch.sort(dim=1)`` and its
-   byte bound.  ptxas must report no spill in ``row_sort.cu`` (phase 2).
+   byte bound.  ptxas must report no spill in ``row_sort.cu`` (phase 2);
+14. the phase probes (``python -m kmer_tpu_torch.probes``' phase
+   families at their scripts' workloads), each family with the wire-key
+   and segment-count kernels' counts set to 0 before it and read after,
+   both required to rise where the family counts: ``feed`` (a 1,035 MB
+   FASTQ of 3.3M reads, the native parser and the file feed at batch 4,096
+   and 65,536), ``device_phases`` (2^20 reads: extraction, sort and
+   segment counts alone, three primitive rates), ``count_phases``
+   (``count_file`` on the 313 MB FASTQ of ``runs.ingest.write_fastq(...,
+   1_000_000, seed=7)``: uploads pageable and pinned, an upload during a
+   sort, the feed, upload and computes on resident batches, both routes,
+   auto, the trims; every route 4,999,967 groups and 130,000,000
+   k-mers), ``read_stream`` (``count_read_stream`` split up, and a
+   pipelined fold equal to it), ``fold_step`` (the sustained step's parts
+   and the merge cadence, equal to the per-batch fold), ``stream_loop``
+   (151 steps free-running and with checkpoint writes, and batches of
+   512k, 1M and 2M reads), ``checkpoint`` (one write of a 4M-slot
+   accumulator split up; every file reloads to its rows) and
+   ``distcount_step`` (the distcount step on one NCCL rank, equal to
+   ``count_file``, and on two gloo ranks sharing the card, with the staged
+   all_to_all's legs); then the ``matmul`` rates (the int8 permute exact,
+   the bf16 product within a relative 1e-2).  Every probe must be
+   correct; the records print as one JSON line; the phase's time prints
+   beside its budget.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit, and the one before that the
@@ -160,6 +183,7 @@ kernels' JSON record.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2401,6 +2425,45 @@ def sort_phase(dev) -> tuple[dict, dict]:
     return launches, at_stage1
 
 
+# --- phase 14: the phase probes ----------------------------------------------
+
+PHASE_PROBES_BUDGET_S = 180
+
+
+def phase_probes(dev) -> dict:
+    """Phase 14; returns each family's launches of the count path's
+    kernels."""
+    from kmer_tpu_torch.probes import FAMILIES, PHASE_KERNELS
+
+    launches, summary = {}, []
+    with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
+        for name, kernels in PHASE_KERNELS.items():
+            zero_launches()
+            t0 = time.perf_counter()
+            records = []
+            for rec in FAMILIES[name].run(dev, workdir=tmp):
+                log(rec.line())
+                records.append(rec)
+            want = {k: ((1, float("inf")) if k in kernels
+                        else (0, float("inf")))
+                    for k in count_path_kernels()}
+            launches[f"{name} (14)"] = read_launches(f"14 {name}", want)
+            bad = [r.name for r in records if not r.correct]
+            check(not bad, f"14 {name}: every probe correct (not: {bad})")
+            log(f"14 {name}: {len(records)} probes in "
+                f"{time.perf_counter() - t0:.1f} s; launches "
+                f"{launches[f'{name} (14)']}")
+            for r in records:
+                out = dataclasses.asdict(r)
+                if out.get("tables"):
+                    out["tables"] = {k: {"groups": t["groups"],
+                                         "total": t["total"]}
+                                     for k, t in out["tables"].items()}
+                summary.append(out)
+    print(json.dumps({"phase14": summary}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2473,7 +2536,12 @@ def main() -> int:
     log(f"phase 13: the sort probes and the partition engines in "
         f"{time.perf_counter() - t0:.1f} s (budget {SORT_PHASE_BUDGET_S} s; "
         f"{card})")
-    log(f"chip_smoke: phases 1-13 passed in "
+    t0 = time.perf_counter()
+    phase_launches = phase_probes(dev)
+    log(f"phase 14: the phase probes in {time.perf_counter() - t0:.1f} s "
+        f"(budget {PHASE_PROBES_BUDGET_S} s, every loop at its script's "
+        f"steps; {card})")
+    log(f"chip_smoke: phases 1-14 passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     def by_path(name):
@@ -2488,7 +2556,9 @@ def main() -> int:
                 "entry (12a)": long_launches["12a"][name],
                 "sustained (12b)": long_launches["12b"][name],
                 "ingest (12c)": long_launches["12c"][name],
-                **{path: n[name] for path, n in sort_launches.items()}}
+                **{path: n[name] for path, n in sort_launches.items()},
+                "phases (14)": sum(n[name] for n in phase_launches.values()),
+                **{path: n[name] for path, n in phase_launches.items()}}
 
     for entry in entries:  # the probe kernels that phase 13 launches too
         if entry["name"] in ("row_sort", "segment_copy"):

@@ -219,7 +219,7 @@ PROBES = [
 ]
 
 
-def run(device: torch.device, small: bool = False):
+def run(device: torch.device, small: bool = False, workdir=None):
     """Yields the Record of every probe (``small`` changes nothing here:
     the shapes are already small)."""
     for probe in PROBES:

@@ -1,13 +1,16 @@
-"""What the probe families share: the result record, timing, the least
+"""What the probe families share: the result records, timing, the least
 time the card could take, comparison."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import hashlib
 import subprocess
+import tempfile
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -15,6 +18,8 @@ import torch
 from ..bench import hbm_bytes_per_s
 from ..kernels.segment_copy import CopyPlan
 from ..kernels.words import to_u32
+from ..runs.common import card_line
+from ..utils.profiling import synchronize
 
 INT32_LANES_PER_SM = 64  # Hopper: 4 partitions x 16 INT32 lanes
 
@@ -271,3 +276,122 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((to_u32(a) - to_u32(b)).abs().max())
+
+
+# --- the phase probes -------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PhaseRecord:
+    """One phase probe's outcome: a part of the engine's path that a
+    script of ``scripts/`` timed on the TPU, timed here.
+
+    ``seconds``: each phase's wall on the host clock, with the device
+    synchronized inside the window (a list where the script repeated the
+    phase); ``correct``: every check of the probe held; ``detail``: what
+    else it measured (sizes, rates, the route taken, a finding);
+    ``tables``: each result table's ``table_digest``, for comparing with
+    another route or package; ``card``: ``nvidia-smi``'s name and power
+    limit of the card, None on the CPU, where no time is a device time.
+    """
+
+    name: str
+    family: str
+    site: str  # the script this probe ports
+    device: str
+    correct: bool
+    seconds: dict
+    detail: dict | None = None
+    tables: dict | None = None
+    card: str | None = None
+
+    def line(self) -> str:
+        """The human-readable line the probe prints."""
+        def fmt(v):
+            if isinstance(v, (list, tuple)):
+                return "[" + ", ".join(fmt(x) for x in v) + "]"
+            return f"{v:.4f} s" if isinstance(v, float) else str(v)
+
+        parts = [f"{self.name}: correct: {self.correct}"]
+        if self.seconds:
+            parts.append(", ".join(f"{k} {fmt(v)}"
+                                   for k, v in self.seconds.items()))
+        if self.detail:
+            parts.append(", ".join(f"{k} {v}" for k, v in
+                                   self.detail.items()))
+        if self.tables:
+            parts.append(", ".join(
+                f"{k}: {t['groups']} groups, total {t['total']}"
+                for k, t in self.tables.items()))
+        parts.append(f"[{self.card or self.device}]")
+        return "; ".join(parts)
+
+
+def card_of(device: torch.device) -> str | None:
+    """The card's name and power limit for a CUDA device, else None."""
+    return card_line() if device.type == "cuda" else None
+
+
+def wall(fn: Callable[[], object], device: torch.device
+         ) -> tuple[object, float]:
+    """(fn(), seconds of the call): the host clock, with the device's
+    queued work finished before the window opens and inside it."""
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def best_wall(fn: Callable[[], object], device: torch.device,
+              repeats: int = 3) -> tuple[object, float]:
+    """(the last result, the least ``wall`` of ``repeats`` calls after a
+    warm one), as the scripts' ``bench`` took it."""
+    out, best = fn(), float("inf")
+    for _ in range(repeats):
+        out, s = wall(fn, device)
+        best = min(best, s)
+    return out, best
+
+
+def twice(fn: Callable[[], object], device: torch.device
+          ) -> tuple[object, list[float]]:
+    """(the last result, the ``wall`` of each of two calls), as the phase
+    scripts timed each part twice."""
+    out, times = None, []
+    for _ in range(2):
+        out, s = wall(fn, device)
+        times.append(s)
+    return out, times
+
+
+@contextlib.contextmanager
+def workspace(workdir: str | None) -> Iterator[str]:
+    """``workdir``, or a temporary directory removed afterwards."""
+    if workdir is not None:
+        yield workdir
+        return
+    with tempfile.TemporaryDirectory(prefix="kmer_probes_") as d:
+        yield d
+
+
+def rows_digest(hi, lo, length, counts) -> dict:
+    """A result table's live rows in key order, as (hi uint32, lo uint32,
+    length int32, int64 counts) arrays: their number, their counts' total
+    and the SHA-256 of their bytes, so two tables of either package
+    compare exactly without keeping both."""
+    h = hashlib.sha256()
+    for a, dt in ((hi, np.uint32), (lo, np.uint32), (length, np.int32),
+                  (counts, np.int64)):
+        h.update(np.ascontiguousarray(np.asarray(a).astype(dt)).tobytes())
+    counts = np.asarray(counts, np.int64)
+    return {"groups": int(counts.size), "total": int(counts.sum()),
+            "sha256": h.hexdigest()}
+
+
+def table_digest(table) -> dict:
+    """``rows_digest`` of a port CountTable's or WideCounts' live rows."""
+    t = table.trim()
+    lanes = t.to_numpy()
+    counts = t.counts64() if hasattr(t, "counts64") else lanes[3]
+    return rows_digest(lanes[0], lanes[1], lanes[2], counts)

@@ -59,7 +59,7 @@ def source(n: int, device: torch.device, seed: int = 0) -> torch.Tensor:
                          device=device, generator=gen)
 
 
-def run(device: torch.device, small: bool = False):
+def run(device: torch.device, small: bool = False, workdir=None):
     """Yields the Record of every copy family."""
     cut = 64 if small else 1
     src = source(R3A_WORDS // cut, device)

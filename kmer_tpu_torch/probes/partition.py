@@ -301,7 +301,7 @@ def _trimmed(table: CountTable) -> tuple[torch.Tensor, torch.Tensor]:
     return table.keys[live], table.counts[live]
 
 
-def run(device: torch.device, small: bool = False):
+def run(device: torch.device, small: bool = False, workdir=None):
     """Yields, for each workload, the production count's record and one
     record an engine: its wall (best of 3 synchronized calls; r3c's
     scalars are computed after the timed calls, on both sides), its

@@ -121,7 +121,7 @@ def _doubling(n, mod=7, base=1, sign=1):
     return [sign * (base << (s % mod)) for s in range(n)]
 
 
-def run(device: torch.device, small: bool = False):
+def run(device: torch.device, small: bool = False, workdir=None):
     """Yields the Record of every rate probe."""
     cut = 64 if small else 1
     p1 = "scripts/probe_pallas.py:113"

@@ -257,7 +257,7 @@ def _monotone_gather(device: torch.device, words: torch.Tensor,
         "port gathers from a table this large)")
 
 
-def run(device: torch.device, small: bool = False):
+def run(device: torch.device, small: bool = False, workdir=None):
     """Yields the Record of every sort probe."""
     cut = SMALL_CUT if small else 1
     n27 = N_2_27 // cut

@@ -29,6 +29,7 @@ from kmer_tpu_torch.kernels.tile_stages import (
 from kmer_tpu_torch.kernels.wire_keys import wire_keys, wire_keys_reference
 from kmer_tpu_torch.native import pack2bit_rows
 from kmer_tpu_torch.packed import SIGN_FLIP
+from kmer_tpu_torch.probes import PHASE_KERNELS
 from kernel_edges import (
     EDGES, GATHER_SHAPES, GATHER_STEPS, GATHER_TABLES, LARGE, OVERLAP_PLANS,
     ROW_SORT_CASES, SCHEDULES, STAGE_SHAPES, WIRE_KS, WIRE_WIDTHS, edge_runs,
@@ -808,3 +809,45 @@ def test_halo_wire_on_cuda_matches_cpu(k):
                           torch.from_numpy(lengths).to(dev), k, True)
         t, o = table.trim(), one.trim()
         assert torch.equal(t.keys, o.keys) and torch.equal(t.counts, o.counts)
+
+
+# --- the phase probes and the matrix-unit rates on the card -----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(set(PHASE_KERNELS) - {"matmul"}))
+def test_phase_probes_on_cuda_equal_cpu(name, tmp_path):
+    """Each phase family at its small size on the card: every probe
+    correct, the count path's kernels launched where the family counts,
+    and every result table equal to the family's run on the CPU."""
+    from kmer_tpu_torch.probes import FAMILIES
+
+    dev = _cuda()
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        work = tmp_path / d.type
+        work.mkdir()
+        before = _launches()
+        runs[d.type] = list(FAMILIES[name].run(d, small=True,
+                                               workdir=str(work)))
+        launched = tuple(n for n, a, b in zip(
+            ("wire_keys", "segment_counts"), _launches(), before) if a > b)
+        assert all(r.correct for r in runs[d.type]), d
+        assert launched == (PHASE_KERNELS[name] if d.type == "cuda"
+                            else ())
+    assert [r.card for r in runs["cuda"]] != [None] * len(runs["cuda"])
+    assert ([r.tables for r in runs["cuda"]]
+            == [r.tables for r in runs["cpu"]])
+
+
+@pytest.mark.gpu
+def test_matmul_rates_on_cuda():
+    """(d) exact, (h) within its tolerance, each with its own time in a
+    CUDA graph beside its bound."""
+    from kmer_tpu_torch.probes import matmul
+
+    dev = _cuda()
+    d, h = matmul.run(dev, small=True)
+    assert d.correct and d.max_abs_err == 0
+    assert h.correct
+    for rec in (d, h):
+        assert rec.graph_ms > 0 and rec.bound_ms > 0
