@@ -6,10 +6,10 @@
 Phases, each of which must pass or the script exits nonzero:
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles the six kernel libraries (nvcc) and the host parser
+2. build: compiles the seven kernel libraries (nvcc) and the host parser
    (cc) from the sources in this checkout, one compiler each at once, and
    prints ptxas's registers and spills (none allowed in the stage, copy,
-   gather, wire-key and row-sort kernels);
+   gather, wire-key, codes-key and row-sort kernels);
 3. kernel vs plain: the segment-count kernel must equal its plain PyTorch
    version exactly on the cases of tests/test_pallas.py, at the edges of
    its tiles (on aligned tensors and on views 8 bytes past 16), and at
@@ -21,7 +21,14 @@ Phases, each of which must pass or the script exits nonzero:
    edges of tests/kernel_edges.py (widths 16 to 161, k 1 to 32,
    canonical or not, with and without the length column, into views 8
    bytes past 16) and at the main path's batch (524,288 rows of width
-   160, k = 21, canonical), where it is timed against its byte bound;
+   160, k = 21, canonical), where it is timed against its byte bound; the
+   codes-key kernel likewise at the edges (widths 16 to 170, k 1 to 32,
+   codes at byte offsets 0 and 7, one window a row, a row of 69,857
+   bases, codes above 3) and at the sustained batch's halo'd rows
+   (524,288 x 170, k = 21) and a KmerCounter step (2^17 x 150), and the
+   stream-key kernel at the edge streams and at phase 7's stream (1M x
+   150 bases) and chr (251,658,240 bases, k = 31) word streams, each
+   timed against its byte bound;
 4. main path: writes a FASTQ of 1,000,000 x 150 bp reads from a seed and
    counts it (k = 21, canonical) through ``count_file`` on the card; the
    wire-key and segment-count kernels' launch counts must rise, and the
@@ -47,7 +54,9 @@ Phases, each of which must pass or the script exits nonzero:
    ``run_chr_bench`` on the card, their distinct counts held against
    phases 4 and 5 (and chr against a second route and, at 16M bases, a
    numpy oracle); the wire-key and segment-count kernels' counts must
-   rise;
+   rise, the stream-key kernel launch 6 times (the stream and chr modes'
+   warm and timed runs) and the codes-key kernel never; the stream and
+   chr walls print beside phase 3's stream-key and plain times;
 8. the streaming fold of ``count_file``, each case with the wire-key and
    segment-count kernels' counts set to 0 before it and required to
    rise: (a) a sequencing run, 5M x
@@ -76,11 +85,12 @@ Phases, each of which must pass or the script exits nonzero:
 10. the rest of the one-device engine, each case with the count path's
    launch counts set to 0 just before it and read just after: (a)
    ``KmerCounter`` (k = 21, canonical) over phase 4's reads in 8 steps of
-   2^17 reads, merged exactly, equal to phase 4's table, 8 segment-count
-   launches; (b) the dense route, ``KmerCounter`` at k = 6 and
-   ``count_kmers_auto`` at k = 8, each equal to the sort route's table at
-   its k, no segment-count launch, and both routes timed at k = 4, 6, 8,
-   10; (c) the graft entry on the card, equal to its CPU result; (d)
+   2^17 reads, merged exactly, equal to phase 4's table, 8 codes-key and
+   8 segment-count launches; (b) the dense route, ``KmerCounter`` at k =
+   6 and ``count_kmers_auto`` at k = 8, each equal to the sort route's
+   table at its k, 9 codes-key launches and no segment-count launch, and
+   both routes timed at k = 4, 6, 8, 10; (c) the graft entry on the card,
+   equal to its CPU result, one codes-key launch; (d)
    ``count_long_sequence`` over the chr sequence of phase 7 (251,658,240
    bases, k = 31, canonical, chunks of 2^24), its distinct count equal to
    phase 7's, then a resumable run over its first 2^25 bases checkpointed
@@ -107,13 +117,16 @@ Phases, each of which must pass or the script exits nonzero:
    gloo backend sharing the card, mesh (4,1), over 8a's reads split into
    4 record-aligned shards, every rank launching both kernels, and
    ``merge_rank_files`` of their files equal to 8a's genome oracle; each
-   rank's wall, k-mers/s, peak memory and merge efficiency printed; (c)
+   rank's wall, k-mers/s, peak memory and merge efficiency printed (every
+   distcount rank fed the wire: no codes-key launch); (c)
    ``count_kmers_sharded`` at (2,2) over 4 gloo ranks (a
    ``parallel.launch.World``), both merges and a forced overflow, each
    rank's table equal to the one-device count (its hash range of it for
-   the partition); (d) ``KmerCounter.count_sharded`` there, and
-   ``dryrun_multichip(4)`` on the card; (e) ``run_sharded_query_bench``
-   (``bench --mode shq``) over the 4 ranks at 2^22 keys, its counts
+   the partition), every rank launching the codes-key kernel; (d)
+   ``KmerCounter.count_sharded`` there, and ``dryrun_multichip(4)`` on
+   the card, every rank launching the codes-key kernel too; (e)
+   ``run_sharded_query_bench`` (``bench --mode shq``) over the 4 ranks at
+   2^22 keys, its counts
    equal to a one-device ``DeviceIndex``'s.  The collectives that gloo
    staged through host memory are printed;
 12. the long runs, each in child processes that print their kernel
@@ -125,8 +138,9 @@ Phases, each of which must pass or the script exits nonzero:
    524,288 x 150 bp reads of a 1 Mbp genome, straight here, then killed
    after 56 batches and resumed in children; the resumed table equals the
    straight one bit for bit and a numpy oracle, with 999,980 groups, the
-   resume starts at batch >= 16, and the segment-count kernel launches
-   once a batch (and once to warm up), ``wire_keys`` never (raw codes);
+   resume starts at batch >= 16, and the codes-key and segment-count
+   kernels launch once a batch (and once to warm up), ``wire_keys`` never
+   (raw codes), in the straight run and in each child;
    (c) ``runs.ingest`` on 8a's FASTQ: the CLI ``count --chunk-mb 128
    --top 3`` in a child whose peak RSS, less the shared libraries'
    resident pages of an idle child (one that imports torch and starts
@@ -146,16 +160,18 @@ Phases, each of which must pass or the script exits nonzero:
    ``segment_copy``; the per-row counts; the monotone gather); (b) the
    ``partition`` family: probe_r3c.py's engines A and B and the port's C
    (stage 1 on ``row_sort``) on its uniform and coverage lanes at N =
-   136,314,880, each trimmed table and r3c's four scalars equal to
-   ``count_windows`` on the same keys, ``row_sort``, ``segment_copy`` and
-   ``segment_counts`` all launched; (c) ``row_sort`` equal to its plain
+   136,314,880 (made by ``stream_keys``), each trimmed table and r3c's
+   four scalars equal to ``count_windows`` on the same keys, ``row_sort``,
+   ``segment_copy``, ``segment_counts`` and ``stream_keys`` all launched;
+   (c) ``row_sort`` equal to its plain
    version at config C's stage-1 rows, [8320, 16384] int64, and timed
    there in a CUDA graph (cold L2) beside ``torch.sort(dim=1)`` and its
    byte bound.  ptxas must report no spill in ``row_sort.cu`` (phase 2);
 14. the phase probes (``python -m kmer_tpu_torch.probes``' phase
-   families at their scripts' workloads), each family with the wire-key
-   and segment-count kernels' counts set to 0 before it and read after,
-   both required to rise where the family counts: ``feed`` (a 1,035 MB
+   families at their scripts' workloads), each family with the count
+   path's kernels' counts set to 0 before it and read after, each
+   required to rise where ``probes.PHASE_KERNELS`` lists it (the codes-key
+   kernel in ``fold_step`` and ``stream_loop``): ``feed`` (a 1,035 MB
    FASTQ of 3.3M reads, the native parser and the file feed at batch 4,096
    and 65,536), ``device_phases`` (2^20 reads: extraction, sort and
    segment counts alone, three primitive rates), ``count_phases``
@@ -165,7 +181,9 @@ Phases, each of which must pass or the script exits nonzero:
    auto, the trims; every route 4,999,967 groups and 130,000,000
    k-mers), ``read_stream`` (``count_read_stream`` split up, and a
    pipelined fold equal to it), ``fold_step`` (the sustained step's parts
-   and the merge cadence, equal to the per-batch fold), ``stream_loop``
+   and the merge cadence, equal to the per-batch fold; the extraction
+   from the wire, by ``codes_keys`` and by its plain version, the last
+   two equal), ``stream_loop``
    (151 steps free-running and with checkpoint writes, and batches of
    512k, 1M and 2M reads), ``checkpoint`` (one write of a 4M-slot
    accumulator split up; every file reloads to its rows) and
@@ -354,18 +372,28 @@ def zero_launches() -> None:
     zero_launches()
 
 
-def read_launches(what: str, want: dict | None = None) -> dict:
-    """The count path's kernels' launches since ``zero_launches``; each
-    must be its ``want`` (an int, or a (low, high) range), by default at
-    least 1."""
-    from kmer_tpu_torch.kernels import launches as read
+# the codes- and stream-fed kernels on a path fed the packed wire (or no
+# reads at all): never launched
+WIRE_FED = {"codes_keys": 0, "stream_keys": 0}
 
-    launches = read()
+
+def check_launches(what: str, launches: dict, want: dict | None = None
+                   ) -> dict:
+    """Each count-path kernel's launches in ``launches`` must be its
+    ``want`` (an int, or a (low, high) range), by default at least 1."""
     for name, n in launches.items():
         w = (want or {}).get(name, (1, float("inf")))
         lo, hi = w if isinstance(w, tuple) else (w, w)
         check(lo <= n <= hi, f"{what}: {n} {name} launches, expected {w}")
     return launches
+
+
+def read_launches(what: str, want: dict | None = None) -> dict:
+    """The count path's kernels' launches since ``zero_launches``, checked
+    against ``want`` (``check_launches``)."""
+    from kmer_tpu_torch.kernels import launches as read
+
+    return check_launches(what, read(), want)
 
 
 # the kernel's timed shapes: (slots, sentinel slots) of the single-shot
@@ -502,6 +530,14 @@ def kernel_cases(dev) -> dict:
     return timing
 
 
+def halves_err(a, b) -> int:
+    """max |difference| of int64 keys' unsigned 32-bit halves"""
+    if a.numel() == 0:
+        return 0
+    return max(int(((a >> s & 0xFFFFFFFF) - (b >> s & 0xFFFFFFFF))
+                   .abs().max()) for s in (32, 0))
+
+
 # the main path's batch: 524,288 rows of width 160 (10 base words and the
 # length column), k = 21, canonical: 140 window slots a row
 WIRE_ROWS, WIRE_WIDTH = 524288, 160
@@ -529,13 +565,6 @@ def wire_key_cases(dev) -> dict:
             words = np.concatenate([words, lengths[:, None]], axis=1)
         words = np.ascontiguousarray(words, np.uint32).view(np.int32)
         return torch.from_numpy(words).to(dev)
-
-    def halves_err(a, b):
-        """max |difference| of the keys' unsigned 32-bit halves"""
-        if a.numel() == 0:
-            return 0
-        return max(int(((a >> s & 0xFFFFFFFF) - (b >> s & 0xFFFFFFFF))
-                       .abs().max()) for s in (32, 0))
 
     def compare(wire, width, k, canonical, lengths, what, view_lead=None):
         m = width - k + 1
@@ -599,6 +628,183 @@ def wire_key_cases(dev) -> dict:
             "library_ms": None, "pct_of_bound": 100 * bound / ms}
 
 
+# codes_keys' timed shapes: (rows, codes a row, k): the sustained batch's
+# halo'd rows through _extract_with_halo (150 windows a row) and a
+# KmerCounter step of 2^17 reads (130 windows a row)
+CODES_TIMED = {"sustained batch": (524288, 170, 21),
+               "KmerCounter step": (1 << 17, READ_LEN, 21)}
+# stream_keys' timed streams: (reads, read length, k), phase 7's: the
+# bench's stream mode over phase 4's reads and the chr mode's sequence
+STREAM_TIMED = {"bench stream": (MAIN_READS, READ_LEN, K),
+                "chr": (1, 15 << 24, 31)}
+
+
+def timed_against_bound(kernel, plain, nbytes: int, ops: int, dev,
+                        what: str, slots: int) -> dict:
+    """A keys kernel in turns (20 launches each) and its plain version,
+    beside the bound of its bytes and int32 operations."""
+    from kmer_tpu_torch.probes.common import bound_ms
+
+    turns = [time_cuda(kernel, 20) for _ in range(2)]
+    plain_ms = time_cuda(plain, 3)
+    bound, by = bound_ms(nbytes, ops, dev)
+    ms = sum(turns) / 2
+    log(f"{what}: {slots} slots, exact; kernel {turns[0]:.4f} / "
+        f"{turns[1]:.4f} ms (20 launches each), plain {plain_ms:.4f} ms; "
+        f"bound {bound:.4f} ms ({by}), kernel at {100 * bound / ms:.2f}% of "
+        "it")
+    return {"slots": slots, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "pct_of_bound": 100 * bound / ms}
+
+
+def codes_key_cases(dev) -> dict:
+    """The codes-key kernel == its plain version in every slot at the edges
+    of tests/kernel_edges.py and at its timed shapes, timed there against
+    its bound; returns the kernels-line fields."""
+    import torch
+
+    from kmer_tpu_torch.kernels.codes_keys import (
+        codes_keys, codes_keys_reference)
+
+    edges = load_by_path(os.path.join(ROOT, "tests", "kernel_edges.py"))
+
+    def on_card(codes, offset):
+        buf = torch.zeros(codes.size + 32, dtype=torch.uint8, device=dev)
+        view = buf[offset: offset + codes.size].view(codes.shape)
+        return view.copy_(torch.from_numpy(codes))
+
+    def compare(codes, lengths, k, canonical, what, view_lead=None):
+        m = codes.shape[1] - k + 1
+        out = None
+        if view_lead is not None:  # a view 8 * lead bytes past 16
+            flat = torch.empty(codes.shape[0] * m + 1, dtype=torch.int64,
+                               device=dev)
+            out = flat[view_lead: view_lead + codes.shape[0] * m].view(-1, m)
+        got, valid = codes_keys(codes, lengths, k, canonical, keys_out=out)
+        want, want_valid = codes_keys_reference(codes, lengths, k, canonical)
+        torch.cuda.synchronize()
+        err = halves_err(got, want)
+        check(torch.equal(got, want) and torch.equal(valid, want_valid),
+              f"codes_keys == plain on {what} (max |diff| of a half {err})")
+        return err
+
+    errs, n_cases = [], 0
+    for width in edges.CODES_WIDTHS:
+        for k in (k for k in edges.CODES_KS if k <= width):
+            codes, lengths = edges.codes_case(width, k, rows=300)
+            lens = torch.from_numpy(lengths).to(dev)
+            for canonical in (False, True):
+                for offset, lead in ((0, None), (7, 1)):
+                    errs.append(compare(on_card(codes, offset), lens, k,
+                                        canonical, f"width {width} k {k}",
+                                        lead))
+                    n_cases += 1
+    for name, *_ in edges.CODES_SHAPES:
+        codes, lengths, k = edges.codes_shape(name)
+        for offset in (0, 3):
+            errs.append(compare(on_card(codes, offset),
+                                torch.from_numpy(lengths).to(dev), k, True,
+                                name, 1))
+            n_cases += 1
+    codes, lengths = edges.wide_codes(150, 21, rows=300)
+    for canonical in (False, True):
+        errs.append(compare(on_card(codes, 5),
+                            torch.from_numpy(lengths).to(dev), 21,
+                            canonical, "codes above 3"))
+        n_cases += 1
+    log(f"codes_keys == plain at the edge shapes ({n_cases} cases: widths "
+        f"{edges.CODES_WIDTHS} x k {edges.CODES_KS} x canonical x codes at "
+        f"byte 0 / 7, aligned / 8 bytes past 16; "
+        f"{[c[0] for c in edges.CODES_SHAPES]}; codes above 3)")
+
+    rng = np.random.default_rng(SEED + 4)
+    timing = {}
+    for shape, (rows, width, k) in CODES_TIMED.items():
+        codes = torch.from_numpy(rng.integers(0, 4, (rows, width),
+                                              dtype=np.uint8)).to(dev)
+        lengths = torch.full((rows,), READ_LEN, dtype=torch.int32,
+                             device=dev)
+        slots = rows * (width - k + 1)
+        what = f"codes_keys at the {shape} ({rows} x {width}, k = {k})"
+        errs.append(compare(codes, lengths, k, True, what))
+        errs.append(compare(codes, lengths, k, True, what + ", a view", 1))
+        # the codes and lengths read once, 8 bytes of key and 1 of valid
+        # written a slot; WIRE_OPS int32 operations a window
+        timing[shape] = timed_against_bound(
+            lambda: codes_keys(codes, lengths, k, True),
+            lambda: codes_keys_reference(codes, lengths, k, True),
+            codes.numel() + 4 * rows + 9 * slots, WIRE_OPS * slots, dev,
+            what, slots)
+        del codes, lengths
+    torch.cuda.empty_cache()
+    return {**timing["sustained batch"], "max_abs_err": float(max(errs)),
+            "at_kmer_counter_step": timing["KmerCounter step"]}
+
+
+def stream_key_cases(dev) -> dict:
+    """The stream-key kernel == its plain version in every slot at the
+    edges of tests/kernel_edges.py and at the bench's stream and chr
+    streams, timed there against its bound; returns the kernels-line
+    fields."""
+    import torch
+
+    from kmer_tpu_torch.kernels.wire_keys import (
+        stream_keys, stream_keys_reference)
+    from kmer_tpu_torch.native import pack2bit_rows
+
+    edges = load_by_path(os.path.join(ROOT, "tests", "kernel_edges.py"))
+
+    def compare(words, k, canonical, read_len, n_reads, what):
+        got, valid = stream_keys(words, k, canonical, read_len, n_reads)
+        want, want_valid = stream_keys_reference(words, k, canonical,
+                                                 read_len, n_reads)
+        torch.cuda.synchronize()
+        err = halves_err(got, want)
+        check(torch.equal(got, want) and torch.equal(valid, want_valid),
+              f"stream_keys == plain on {what} (max |diff| of a half {err})")
+        return err
+
+    errs, n_cases = [], 0
+    for n_reads, read_len in edges.STREAM_CASES:
+        words = pack2bit_rows(edges.stream_case(n_reads, read_len)[None, :])[0]
+        buf = torch.zeros(words.size + 1, dtype=torch.int32, device=dev)
+        for at, view in (("aligned", buf[:-1]), ("4 bytes past", buf[1:])):
+            view.copy_(torch.from_numpy(words.view(np.int32)))
+            for k in edges.STREAM_KS:
+                for canonical in (False, True):
+                    errs.append(compare(view, k, canonical, read_len,
+                                        n_reads, f"{n_reads} x {read_len} "
+                                        f"k {k} ({at})"))
+                    n_cases += 1
+    log(f"stream_keys == plain at the edge streams ({n_cases} cases: "
+        f"{edges.STREAM_CASES} x k {edges.STREAM_KS} x canonical x words "
+        "aligned / 4 bytes past 16)")
+
+    # random words of the modes' sizes: the kernel's work does not depend
+    # on the bases, and drawing words skips packing 252M codes on the host
+    rng = np.random.default_rng(SEED + 5)
+    timing = {}
+    for shape, (n_reads, read_len, k) in STREAM_TIMED.items():
+        words = torch.from_numpy(rng.integers(
+            0, 1 << 32, n_reads * read_len // 16, dtype=np.uint64
+        ).astype(np.uint32).view(np.int32)).to(dev)
+        slots = 16 * words.numel()
+        what = (f"stream_keys at the {shape} ({n_reads} x {read_len} bases, "
+                f"k = {k})")
+        errs.append(compare(words, k, True, read_len, n_reads, what))
+        # the words read once, 8 bytes of key and 1 of valid written a
+        # slot; WIRE_OPS int32 operations a window
+        timing[shape] = timed_against_bound(
+            lambda: stream_keys(words, k, True, read_len, n_reads),
+            lambda: stream_keys_reference(words, k, True, read_len, n_reads),
+            4 * words.numel() + 9 * slots, WIRE_OPS * slots, dev, what,
+            slots)
+        del words
+        torch.cuda.empty_cache()
+    return {**timing["chr"], "max_abs_err": float(max(errs)),
+            "at_bench_stream": timing["bench stream"]}
+
 def main_path(dev, tmp: str):
     """Counts the 1M x 150 bp FASTQ on the card; returns (the kernels'
     launches, the FASTQ's path, its oracle-checked host table)."""
@@ -621,7 +827,7 @@ def main_path(dev, tmp: str):
     table = count_file(path, "fastq", K, canonical=True, device=dev)
     torch.cuda.synchronize(dev)
     t_count = time.perf_counter() - t0
-    launches = read_launches("the main path")
+    launches = read_launches("the main path", WIRE_FED)
     host = table.trim()
     wall = time.perf_counter() - t0
     log(f"main path: count_file {t_count:.3f} s, with trim to host "
@@ -904,11 +1110,11 @@ def probe_edges(dev) -> dict:
 
 
 def bench_on_card(dev, main_distinct: int, coverage_distinct: int
-                  ) -> tuple[dict, int, dict]:
+                  ) -> tuple[dict, int, dict, dict]:
     """The bench's modes on the card, held against phases 4 and 5; returns
     the count path's kernels' launches in them, the chr sequence's
-    distinct count and the fused result at the benchmark entry's
-    defaults."""
+    distinct count, the fused result at the benchmark entry's defaults
+    and the stream and chr modes' walls in ms."""
     import torch
 
     from kmer_tpu_torch import bench
@@ -928,9 +1134,11 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int
     got = show(bench.run_bench(n_reads=MAIN_READS, **common))
     check(got == main_distinct, f"fused bench distinct {got} == "
           f"{main_distinct} (phase 4)")
-    got = show(bench.run_bench_stream(n_reads=MAIN_READS, **common))
+    stream = bench.run_bench_stream(n_reads=MAIN_READS, **common)
+    got = show(stream)
     check(got == main_distinct, f"stream bench distinct {got} == "
           f"{main_distinct} (phase 4)")
+    walls = {"bench stream": 1e3 * stream["detail"]["wall_s"]}
     got = show(bench.run_bench(n_reads=200_000, coverage_genome=1_000_000,
                                **common))
     check(got == coverage_distinct, f"coverage bench distinct {got} == "
@@ -939,6 +1147,7 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int
     chr_k = 31
     result = bench.run_chr_bench(k=chr_k, seed=SEED, device=dev)
     got = show(result)
+    walls["chr"] = 1e3 * result["detail"]["wall_s"]
     n_bases = result["detail"]["n_bases"]
     codes = torch.from_numpy(bench.chr_codes(n_bases, SEED)).to(dev)
     keys = canonicalize(extract_windows(codes, chr_k), chr_k)
@@ -960,9 +1169,12 @@ def bench_on_card(dev, main_distinct: int, coverage_distinct: int
                             canonical=True, device=dev)
     log(f"bench at the entry's defaults (2^20 reads, seed 0): distinct "
         f"{show(entry)}")
-    launches = read_launches("the bench")
+    # stream_keys: the stream mode's warm and timed runs, and the chr
+    # mode's at both sizes
+    launches = read_launches("the bench", {"codes_keys": 0,
+                                           "stream_keys": 6})
     log(f"bench: exact on every mode; kernel launches {launches}")
-    return launches, second, entry
+    return launches, second, entry, walls
 
 
 # --- phase 8: the streaming fold ---------------------------------------------
@@ -1053,7 +1265,7 @@ def fold_run(dev, what: str, windows: int, path: str, **kw):
                        profile=profile, device=dev, **kw)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = read_launches(f"{what}: the fold")
+    launches = read_launches(f"{what}: the fold", WIRE_FED)
     per = {name: 1e3 * sec / max(stats.batches, 1)
            for name, sec in profile.phases.items() if name in PER_BATCH}
     once = {name: sec for name, sec in profile.phases.items()
@@ -1254,7 +1466,7 @@ def sql_phase(dev, tmp: str, card: str) -> dict:
     out, summary = run_cli(["count", "--input", csv_path, "-k", "8",
                             "--from-dna-column", "--device", str(dev)])
     t_dna = time.perf_counter() - t0
-    launches["9c"] = read_launches("9c: count --from-dna-column")
+    launches["9c"] = read_launches("9c: count --from-dna-column", WIRE_FED)
     check(counts_printed(out) == dna_column_oracle([r[0] for r in rows], 8),
           "9c: dna-column 8-mer counts equal the numpy oracle")
     log(f"9c: count --from-dna-column -k 8 in {t_dna:.3f} s, "
@@ -1333,7 +1545,8 @@ def counter_case(dev, reads, main_table) -> tuple[dict, tuple]:
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     steps = -(-MAIN_READS // cfg.chunk_reads)
-    launches = read_launches("10a", {"wire_keys": 0,
+    launches = read_launches("10a", {"wire_keys": 0, "codes_keys": steps,
+                                     "stream_keys": 0,
                                      "segment_counts": steps})
     same_rows(keys, counts, main_table, "10a: KmerCounter, merged")
     windows = MAIN_READS * cfg.windows_per_read()
@@ -1355,7 +1568,7 @@ def dense_case(dev, reads) -> tuple[dict, dict]:
     from kmer_tpu_torch.ops.count import count_kmers
     from kmer_tpu_torch.ops.dense_count import (
         count_kmers_dense, dense_histogram, right_aligned_keys)
-    from kmer_tpu_torch.ops.extract import canonicalize, extract_windows_batch
+    from kmer_tpu_torch.kernels.codes_keys import codes_keys
 
     codes = torch.from_numpy(reads).to(dev)
     lens = torch.full((MAIN_READS,), READ_LEN, dtype=torch.int32,
@@ -1370,8 +1583,10 @@ def dense_case(dev, reads) -> tuple[dict, dict]:
     counter.check_exact()
     auto8 = count_kmers_auto(codes, lens, 8, True)
     torch.cuda.synchronize(dev)
-    launches = read_launches("10b: the dense route",
-                             {"wire_keys": 0, "segment_counts": 0})
+    steps = -(-MAIN_READS // STEP_READS)
+    launches = read_launches("10b: the dense route", {
+        "wire_keys": 0, "codes_keys": steps + 1, "stream_keys": 0,
+        "segment_counts": 0})
     # a dense step leaves its bin max on the device: no host sync
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1402,8 +1617,8 @@ def dense_case(dev, reads) -> tuple[dict, dict]:
         # the first turn of each route warms it
         times[k] = {name: min(ms[1:]) for name, ms in turns.items()}
         # the histogram alone against torch.bincount (which syncs)
-        keys, valid = extract_windows_batch(codes, lens, k)
-        values = right_aligned_keys(canonicalize(keys, k), k)
+        keys, valid = codes_keys(codes, lens, k, True)
+        values = right_aligned_keys(keys, k)
         nbins = 1 << 2 * k
         hist = dense_histogram(values, valid, k)
         lib = torch.bincount(torch.where(valid.reshape(-1), values.reshape(-1),
@@ -1417,7 +1632,7 @@ def dense_case(dev, reads) -> tuple[dict, dict]:
         del keys, valid, values, hist, lib
         log(f"10b: k={k}, canonical, {MAIN_READS} x {READ_LEN} reads: "
             f"dense {turns['dense']} ms, sort {turns['sort']} ms (in turns;"
-            " each includes the eager extraction); the histogram alone "
+            " each includes its codes_keys launch); the histogram alone "
             f"{times[k]['histogram']} ms, torch.bincount "
             f"{times[k]['bincount']} ms")
     log(f"10b: KmerCounter k=6 and count_kmers_auto k=8 equal the sort "
@@ -1435,7 +1650,8 @@ def graft_case(dev) -> dict:
     zero_launches()
     got = fn(*args)
     torch.cuda.synchronize(dev)
-    launches = read_launches("10c", {"wire_keys": 0, "segment_counts": 1})
+    launches = read_launches("10c", {"wire_keys": 0, "codes_keys": 1,
+                                     "stream_keys": 0, "segment_counts": 1})
     cpu_fn, cpu_args = entry("cpu")
     want = cpu_fn(*cpu_args).trim()
     same_rows(got.trim().keys, got.trim().counts, want, "10c: graft entry")
@@ -1471,7 +1687,7 @@ def long_sequence_case(dev, tmp: str, chr_distinct: int) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {"fast": read_launches(
-        "10d", {"wire_keys": n_chunks, "segment_counts": 1})}
+        "10d", {"wire_keys": n_chunks, "segment_counts": 1, **WIRE_FED})}
     check(distinct == chr_distinct,
           f"10d: distinct {distinct} == phase 7's chr {chr_distinct}")
     windows = CHR_BASES - CHR_K + 1
@@ -1520,7 +1736,8 @@ def long_sequence_case(dev, tmp: str, chr_distinct: int) -> dict:
                                   resumable=rest, device=dev).trim()
     wall = time.perf_counter() - t0
     launches["resumable"] = read_launches(
-        "10d resumable", {"wire_keys": chunks, "segment_counts": chunks})
+        "10d resumable", {"wire_keys": chunks, "segment_counts": chunks,
+                          **WIRE_FED})
     same_rows(resumed.keys, resumed.counts, fast,
               "10d: resumed run vs the fast path")
     log(f"10d: resumable run over {RESUME_BASES} bases ({chunks} chunks, "
@@ -1566,7 +1783,8 @@ def read_stream_case(dev, tmp: str, reads, main_table, after3) -> dict:
         host = acc.trim()
         wall = time.perf_counter() - t0
         launches[what] = read_launches(
-            f"10e {what}", {"wire_keys": len(use), "segment_counts": len(use)})
+            f"10e {what}", {"wire_keys": len(use), "segment_counts": len(use),
+                            **WIRE_FED})
         spills = "in host memory"
         if what == "full":
             same_rows(host.keys, host.counts, main_table,
@@ -1644,7 +1862,8 @@ def serve_case(dev, tmp: str) -> dict:
         t0 = time.perf_counter()
         answers.append(execute(q))
         lat.append(time.perf_counter() - t0)
-    launches = read_launches("10f", {"wire_keys": 0, "segment_counts": 0})
+    launches = read_launches("10f", {"wire_keys": 0, "segment_counts": 0,
+                                     **WIRE_FED})
     scans = {"EQ": table.scan_eq, "PREFIX": table.scan_prefix,
              "PATTERN": table.scan_pattern}
     for q, r in zip(queries, answers):
@@ -1812,13 +2031,14 @@ def distcount_ranks(tmp: str, tag: str, argvs: list[list[str]],
 
 
 def rank_launches(what: str, outs: list[dict]) -> dict:
-    """Every rank must have launched both count-path kernels; returns
-    their launches summed over the ranks."""
+    """Every distcount rank (fed the packed wire) must have launched the
+    wire-key and segment-count kernels and no codes- or stream-key
+    kernel; returns their launches summed over the ranks."""
     total = {}
     for o in outs:
-        for name, n in o["detail"]["launches"].items():
-            check(n >= 1, f"{what}: rank {o['rank']} launched {name} {n} "
-                  "times")
+        launches = o["detail"]["launches"]
+        check_launches(f"{what}: rank {o['rank']}", launches, WIRE_FED)
+        for name, n in launches.items():
             total[name] = total.get(name, 0) + n
     return total
 
@@ -2069,7 +2289,8 @@ def sharded_rank(n_reads: int, read_len: int) -> dict:
         table = run()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-        launches = read_launches(f"11c {case}", {"wire_keys": 0})
+        launches = read_launches(f"11c {case}", {"wire_keys": 0,
+                                                 "stream_keys": 0})
         t = table.trim()
         want = (one.keys, one.counts) if whole else (one.keys[mine],
                                                      one.counts[mine])
@@ -2092,7 +2313,8 @@ def shq_rank(n_keys: int, n_queries: int) -> dict:
     zero_launches()
     result = run_sharded_query_bench(n_keys, n_queries, device=dev)
     result["launches"] = read_launches("11e", {"wire_keys": 0,
-                                               "segment_counts": 0})
+                                               "segment_counts": 0,
+                                               **WIRE_FED})
     result["staged"] = sorted(comm.STAGED)
     return result
 
@@ -2143,8 +2365,8 @@ def multi_phase(tmp: str, main_fastq: str, main_table, run) -> dict:
     t0 = time.perf_counter()
     zero_launches()
     dry = dryrun_multichip(4, "cuda", timeout_s=300)
-    for r, n in enumerate(dry["launches"]):
-        check(min(n.values()) >= 1, f"11d dryrun: rank {r} launches {n}")
+    for r, n in enumerate(dry["launches"]):  # the codes and the wire fed
+        check_launches(f"11d dryrun: rank {r}", n, {"stream_keys": 0})
     launches["11d dryrun"] = summed(dry["launches"])
     for name, n in count_path_kernels().items():  # the one-rank fold here
         launches["11d dryrun"][name] += n.launches
@@ -2187,8 +2409,7 @@ def entry_case(entry_want: dict, **env_extra: str) -> dict:
         check(detail[key] == entry_want["detail"][key],
               f"12a: {key} {detail[key]} == phase 7's "
               f"{entry_want['detail'][key]}")
-    launches = detail["launches"]
-    check(min(launches.values()) >= 1, f"12a: launches {launches}")
+    launches = check_launches("12a", detail["launches"], WIRE_FED)
     log(f"12a: bench_entry (fused, 2^20 reads) in {wall:.3f} s with "
         f"start-up: {out[0]}; counts equal phase 7's in-process run "
         f"(distinct {detail['unique_kmers']}); records surfaced "
@@ -2210,8 +2431,10 @@ def sustained_case(dev, tmp: str, cfg=None) -> dict:
     t0 = time.perf_counter()
     straight = sus.run_phase("straight", cfg, d, dev)
     wall = time.perf_counter() - t0
+    # one codes_keys and one segment count a batch, and the warm-up's
     runs = {"straight": read_launches("12b straight", {
-        "wire_keys": 0, "segment_counts": cfg.steps + 1})}
+        "wire_keys": 0, "codes_keys": cfg.steps + 1, "stream_keys": 0,
+        "segment_counts": cfg.steps + 1})}
     check(straight["distinct"] == sus.FULL_DISTINCT or not full,
           f"12b: straight distinct {straight['distinct']}")
     log(f"12b straight: {cfg.steps} batches of {cfg.batch_reads} reads, "
@@ -2233,7 +2456,8 @@ def sustained_case(dev, tmp: str, cfg=None) -> dict:
         kill = json.load(f)
     check(kill["killed_at_batch"] == cfg.kill_after, "12b: killed at 56")
     runs["kill"] = kill["launches"]
-    check(runs["kill"] == {"wire_keys": 0,
+    check(runs["kill"] == {"wire_keys": 0, "codes_keys": cfg.kill_after + 1,
+                           "stream_keys": 0,
                            "segment_counts": cfg.kill_after + 1},
           f"12b: the kill child's launches {runs['kill']}")
     log(f"12b kill: os._exit(1) after {kill['killed_at_batch']} batches, "
@@ -2258,6 +2482,8 @@ def sustained_case(dev, tmp: str, cfg=None) -> dict:
     runs["resume"] = resume["launches"]
     check(runs["resume"] == {
         "wire_keys": 0,
+        "codes_keys": resume["steps_run_this_process"] + 1,
+        "stream_keys": 0,
         "segment_counts": resume["steps_run_this_process"] + 1},
         f"12b: the resume child's launches {runs['resume']}")
     log(f"12b resume: from batch {resume['start_batch']}, "
@@ -2328,7 +2554,7 @@ def ingest_case(dev, tmp: str, run: tuple, **ckpt_kw) -> dict:
           "12c: the straight count --ckpt table equals 8a's oracle")
     runs.update(rec["launches"])
     for name, n in runs.items():
-        check(min(n.values()) >= 1, f"12c {name}: launches {n}")
+        check_launches(f"12c {name}", n, WIRE_FED)
     log(f"12c ckpt: the CLI's count --ckpt (defaults, a checkpoint every "
         f"60 s) {rec['straight_wall_s']:.3f} s with start-up "
         f"({rec['straight_count_s_in_child']} s counting, "
@@ -2371,12 +2597,13 @@ def sort_phase(dev) -> tuple[dict, dict]:
     from kmer_tpu_torch.kernels.row_sort import row_sort, row_sort_reference
     from kmer_tpu_torch.kernels.segment_copy import segment_copy
     from kmer_tpu_torch.kernels.segment_counts import segment_counts
-    from kmer_tpu_torch.kernels.wire_keys import wire_keys
+    from kmer_tpu_torch.kernels.wire_keys import stream_keys, wire_keys
     from kmer_tpu_torch.probes import partition, sorting
     from kmer_tpu_torch.probes.common import bound_ms, graph_ms, max_abs_err
 
     wrappers = {"row_sort": row_sort, "segment_copy": segment_copy,
-                "segment_counts": segment_counts, "wire_keys": wire_keys}
+                "segment_counts": segment_counts, "wire_keys": wire_keys,
+                "stream_keys": stream_keys}
     launches, summary = {}, []
     for family in (sorting, partition):
         tag = f"{family.__name__.rsplit('.', 1)[-1]} (13)"
@@ -2398,7 +2625,8 @@ def sort_phase(dev) -> tuple[dict, dict]:
     for name in ("row_sort", "segment_copy"):
         check(launches["sorting (13)"][name] > 0,
               f"13: the sorting probes launched {name}")
-    for name in ("row_sort", "segment_copy", "segment_counts"):
+    for name in ("row_sort", "segment_copy", "segment_counts",
+                 "stream_keys"):  # stream_keys: the lanes
         check(launches["partition (13)"][name] > 0,
               f"13: the partition engines launched {name}")
     print(json.dumps({"phase13": summary}), flush=True)
@@ -2473,8 +2701,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from kmer_tpu_torch.kernels import (
-        row_sort, segment_copy, segment_counts, tile_gather, tile_stages,
-        wire_keys)
+        codes_keys, row_sort, segment_copy, segment_counts, tile_gather,
+        tile_stages, wire_keys)
     from kmer_tpu_torch.kernels.build import native_library
 
     dev = torch.device("cuda", 0)
@@ -2482,8 +2710,8 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t_start = t0 = time.perf_counter()
-    libraries = (wire_keys, segment_counts, tile_gather, tile_stages,
-                 row_sort, segment_copy)
+    libraries = (wire_keys, codes_keys, segment_counts, tile_gather,
+                 tile_stages, row_sort, segment_copy)
     builds = [m.build for m in libraries] + [native_library]
     with ThreadPoolExecutor(len(builds)) as pool:  # one compiler each
         for future in [pool.submit(b) for b in builds]:
@@ -2494,11 +2722,15 @@ def main() -> int:
         stem = m.__name__.rsplit(".", 1)[-1]
         log(f"ptxas, {stem}.cu: {ptxas_report(stem)}")
     for stem in ("tile_stages", "segment_copy", "tile_gather", "wire_keys",
-                 "row_sort"):
+                 "codes_keys", "row_sort"):
         check_no_spills(stem)
 
+    t0 = time.perf_counter()
     timing = kernel_cases(dev)
     wire_timing = wire_key_cases(dev)
+    codes_timing = codes_key_cases(dev)
+    stream_timing = stream_key_cases(dev)
+    log(f"phase 3 in {time.perf_counter() - t0:.1f} s ({card})")
     with tempfile.TemporaryDirectory() as tmp:
         launches, main_fastq, main_table = main_path(dev, tmp)
         cov_fastq, cov_table = edge_cases(dev, tmp)
@@ -2506,8 +2738,17 @@ def main() -> int:
         worst = probe_edges(dev)
         next(e for e in entries if e["name"] == "segment_copy")[
             "overlap_worst_case"] = worst
-        bench_launches, chr_distinct, entry_want = bench_on_card(
+        bench_launches, chr_distinct, entry_want, walls = bench_on_card(
             dev, main_table.distinct(), cov_table.distinct())
+        for mode, wall in walls.items():  # the phase split of the two modes
+            kt = (stream_timing if mode == "chr"
+                  else stream_timing["at_bench_stream"])
+            eager = wall - kt["ms"] + kt["plain_ms"]  # the wall with it
+            log(f"bench {mode}: wall {wall:.3f} ms, of which stream_keys "
+                f"{kt['ms']:.4f} ms ({100 * kt['ms'] / wall:.2f}%, phase "
+                f"3's time); the plain extraction it replaced "
+                f"{kt['plain_ms']:.4f} ms, {100 * kt['plain_ms'] / eager:.2f}"
+                f"% of the {eager:.3f} ms wall it makes ({card})")
         t0 = time.perf_counter()
         fold_launches, run = fold_phase(dev, tmp, main_fastq, main_table,
                                         cov_fastq, cov_table)
@@ -2556,7 +2797,8 @@ def main() -> int:
                 "entry (12a)": long_launches["12a"][name],
                 "sustained (12b)": long_launches["12b"][name],
                 "ingest (12c)": long_launches["12c"][name],
-                **{path: n[name] for path, n in sort_launches.items()},
+                **{path: n.get(name, 0)
+                   for path, n in sort_launches.items()},
                 "phases (14)": sum(n[name] for n in phase_launches.values()),
                 **{path: n[name] for path, n in phase_launches.items()}}
 
@@ -2580,6 +2822,28 @@ def main() -> int:
         "launches": launches["wire_keys"],
         "launches_by_path": by_path("wire_keys"),
         **wire_timing,
+    }, {
+        "name": "codes_keys",
+        "route": "cuda",
+        "source": "kmer_tpu_torch/csrc/codes_keys.cu",
+        "replaces": "no pallas_call: XLA fused it on the TPU "
+                    "(kmer_tpu/ops/extract.py:63, 133, "
+                    "kmer_tpu/parallel/dist.py:57-89)",
+        # this kernel's main path: the sustained stream of raw codes (12b)
+        "launches": long_launches["12b"]["codes_keys"],
+        "launches_by_path": by_path("codes_keys"),
+        **codes_timing,
+    }, {
+        "name": "stream_keys",
+        "route": "cuda",
+        "source": "kmer_tpu_torch/csrc/wire_keys.cu",
+        "replaces": "no pallas_call: XLA fused it on the TPU "
+                    "(kmer_tpu/ops/extract.py:155, 133, 181, "
+                    "kmer_tpu/bench.py:262, 319)",
+        # this kernel's main path: the bench's stream and chr modes (7)
+        "launches": bench_launches["stream_keys"],
+        "launches_by_path": by_path("stream_keys"),
+        **stream_timing,
     }, {
         "name": "segment_counts",
         "route": "cuda",

@@ -14,9 +14,11 @@ card's name.
   starts from the numpy words inside the timed region.  Detail carries
   the extract / sort / segment_counts phases.
 * ``run_bench_stream``: phase-major windows straight from the packed
-  words of reads laid back to back, invalid slots folded into the
+  words of reads laid back to back (keys and valid mask in one kernel,
+  ``kernels/wire_keys.stream_keys``), invalid slots folded into the
   sentinel.
-* ``run_chr_bench``: one ~252 Mbp sequence, k = 31, phase-major.
+* ``run_chr_bench``: one ~252 Mbp sequence, k = 31, phase-major through
+  the same kernel.
 * ``run_query_bench``: index lookups over random 21-mers: the hash
   index's equality lookups (the headline), binary-search equality and
   fenced 8-base prefix ranges on the sorted column, and the builds.
@@ -46,16 +48,10 @@ from .index import (
     searchsorted_packed,
 )
 from .kernels.segment_counts import segment_counts
-from .kernels.wire_keys import wire_keys
+from .kernels.wire_keys import stream_keys, wire_keys
 from .native import pack2bit_rows
 from .ops.count import count_windows
-from .ops.extract import (
-    canonicalize,
-    extract_from_words,
-    phase_major_valid,
-    simulate_coverage_reads,
-    simulate_reads,
-)
+from .ops.extract import simulate_coverage_reads, simulate_reads
 from .packed import SIGN_FLIP, KmerColumn, PackedKmers, key_from_hi_lo
 from .utils.profiling import Profile, phase_timer, synchronize
 
@@ -216,15 +212,11 @@ def run_bench_stream(
     if n_bases % 16:
         raise ValueError(f"the base count {n_bases} must be a multiple of "
                          "16 (whole words)")
-    nw_total = n_bases // 16
     words_host = pack2bit_rows(
         simulate_reads(n_reads, read_len, seed=seed).reshape(1, -1))[0]
 
     def count_all(wire):
-        keys = extract_from_words(wire, k)
-        if canonical:
-            keys = canonicalize(keys, k)
-        valid = phase_major_valid(nw_total, read_len, n_reads, k, device)
+        keys, valid = stream_keys(wire, k, canonical, read_len, n_reads)
         return count_windows(keys.reshape(-1), valid.reshape(-1), k)
 
     wire = _upload(words_host, device)
@@ -254,16 +246,12 @@ def run_chr_bench(
     device = torch.device(device)
     n_bases = (n_bases // 16) * 16
     total_windows = n_bases - k + 1
-    nw = n_bases // 16
     wire = _upload(pack2bit_rows(chr_codes(n_bases, seed)[None, :])[0],
                    device)
 
     def count_all(w):
-        keys = extract_from_words(w, k)
-        if canonical:
-            keys = canonicalize(keys, k)
         # one "read" of n_bases: valid iff p <= n_bases - k
-        valid = phase_major_valid(nw, n_bases, 1, k, device)
+        keys, valid = stream_keys(w, k, canonical, n_bases, 1)
         return count_windows(keys.reshape(-1), valid.reshape(-1), k)
 
     int(count_all(wire).n_unique)  # warm

@@ -69,14 +69,12 @@ def _dryrun_rank(shape, tmp: str, device: str) -> dict:
 
     from .parallel.multihost import local_rank, rank_device
 
-    from .kernels.segment_counts import segment_counts
-    from .kernels.wire_keys import wire_keys
+    from .kernels import launches, zero_launches
 
     mesh = make_mesh(shape, device=rank_device(device, local_rank()))
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
-    for kernel in (wire_keys, segment_counts):
-        kernel.launches = 0
+    zero_launches()
     cfg = EngineConfig(k=5, canonical=True)
     model = KmerCounter(cfg, device=mesh.device)
     reads, lengths, reads4, lengths4, batch = _dryrun_inputs(shape)
@@ -114,8 +112,7 @@ def _dryrun_rank(shape, tmp: str, device: str) -> dict:
             "acc": acc.to_dict(), "ref": ref.to_dict(),
             "distcount": local.to_dict(),
             "spill": spill,
-            "launches": {"wire_keys": wire_keys.launches,
-                         "segment_counts": segment_counts.launches}}
+            "launches": launches()}
 
 
 def _dryrun_spill_resume(mesh, tmp: str) -> dict:

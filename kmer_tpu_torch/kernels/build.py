@@ -8,7 +8,9 @@ load a half-written library.
 
 * CUDA kernels (``kmer_tpu_torch/csrc/*.cu``): ``nvcc`` for ``sm_90a``
   into a library with a plain C interface, loaded with ctypes.  No
-  PyTorch headers are included, so a build takes seconds.
+  PyTorch headers are included, so a build takes seconds.  A source
+  rebuilds when it or any header of ``csrc/`` (``*.cuh``) is newer than
+  its library.
 * The host parser (``native/kmer_native.c``): ``cc``.  The port builds
   its own copy and leaves ``kmer_tpu``'s ``native/libkmer_native.so``
   alone.
@@ -42,12 +44,14 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build_library(src: str, name: str, compiler: list[str]) -> str:
-    """Compile ``src`` into ``BUILD_DIR/name`` unless an up-to-date build
-    exists; returns the library path.  The compiler's messages go to
-    ``BUILD_DIR/name.log``.  A failed build raises."""
+def build_library(src: str, name: str, compiler: list[str],
+                  deps: tuple[str, ...] = ()) -> str:
+    """Compile ``src`` into ``BUILD_DIR/name`` unless a build newer than
+    it and its ``deps`` exists; returns the library path.  The compiler's
+    messages go to ``BUILD_DIR/name.log``.  A failed build raises."""
     out = os.path.join(BUILD_DIR, name)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(f) for f in (src, *deps))
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".tmp.so")
@@ -71,8 +75,10 @@ def build_library(src: str, name: str, compiler: list[str]) -> str:
 def cuda_library(src_name: str) -> str:
     """Build ``csrc/<src_name>`` with nvcc for Hopper (``sm_90a``)."""
     stem = os.path.splitext(src_name)[0]
+    headers = tuple(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                    if f.endswith(".cuh"))
     return build_library(os.path.join(CSRC_DIR, src_name), f"lib{stem}.so",
-                         [_nvcc(), *NVCC_FLAGS])
+                         [_nvcc(), *NVCC_FLAGS], headers)
 
 
 class KernelLibrary:

@@ -1,5 +1,7 @@
-"""Wire -> k-mer keys: the wrapper of the hand-written CUDA kernel
-(``csrc/wire_keys.cu``), its plain PyTorch version, and its launch count.
+"""Packed words -> k-mer keys: the wrappers of the two hand-written CUDA
+kernels of ``csrc/wire_keys.cu`` (``wire_keys`` for the wire of rows,
+``stream_keys`` for a phase-major word stream), their plain PyTorch
+versions, and their launch counts.
 
 Replaces the device work that XLA fused on the TPU with no Pallas kernel
 (``kmer_tpu/native.py`` ``device_unpack_rows``, ``kmer_tpu/ops/extract.py``
@@ -22,6 +24,18 @@ is the composition the pipeline ran before this kernel existed:
 (a batch's slice of a flat buffer) to write into.  The wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
 the kernel or raises.
+
+``stream_keys(words, k, canonical, read_len, n_reads)`` replaces the XLA
+fusion of ``kmer_tpu/ops/extract.py`` ``extract_from_words``,
+``canonicalize`` and ``phase_major_valid`` (composed by
+``kmer_tpu/bench.py``'s stream and chr benches).  It takes a flat stream
+of ``nw`` 32-bit words (int32 or uint32), reads of ``read_len`` bases laid
+back to back, and returns ``(keys, valid)``, ``[16, nw]`` each: keys[r, w]
+the window at base p = 16w + r (canonical when asked; windows past the
+stream's end read zero words) and valid[r, w] ``p % read_len <= read_len
+- k`` and ``p <= n_reads * read_len - k``.  Every slot equals the plain
+version's: ``extract_from_words``, ``canonicalize``,
+``phase_major_valid``.
 """
 
 from __future__ import annotations
@@ -33,9 +47,11 @@ import torch
 from ..codec import MAX_K
 from ..errors import InvalidKmerLengthError
 from ..native import device_unpack_rows
-from ..ops.extract import canonicalize, extract_windows_batch
+from ..ops.extract import (
+    canonicalize, extract_from_words, extract_windows_batch,
+    phase_major_valid)
 from .build import KernelLibrary
-from .words import MASK32, stream_of
+from .words import MASK32, check_out, stream_of
 
 MAX_STAGED = 8192  # wire words a row may have (kMaxStaged in the source)
 
@@ -44,6 +60,10 @@ _LIB = KernelLibrary("wire_keys", {
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p],
+    "stream_keys_launch": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p],
 })
 
 
@@ -72,15 +92,6 @@ def _check(wire, width, k, lengths) -> tuple[int, int]:
     return nw, width - k + 1
 
 
-def _check_out(out, dtype, shape, device, name) -> None:
-    if out is None:
-        return
-    if (out.dtype != dtype or tuple(out.shape) != shape
-            or not out.is_contiguous() or out.device != device):
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
-                         f"shape {shape} on {device}")
-
-
 def wire_keys_reference(wire: torch.Tensor, width: int, k: int,
                         canonical: bool, lengths: bool = True
                         ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -105,10 +116,10 @@ def wire_keys(wire: torch.Tensor, width: int, k: int, canonical: bool,
     ``valid_out`` when given."""
     _, m = _check(wire, width, k, lengths)
     shape = (wire.shape[0], m)
-    _check_out(keys_out, torch.int64, shape, wire.device, "keys_out")
+    check_out(keys_out, torch.int64, shape, wire.device, "keys_out")
     if valid_out is not None and not lengths:
         raise ValueError("valid_out needs the wire's length column")
-    _check_out(valid_out, torch.bool, shape, wire.device, "valid_out")
+    check_out(valid_out, torch.bool, shape, wire.device, "valid_out")
     if wire.device.type == "cpu":
         keys, valid = wire_keys_reference(wire, width, k, canonical, lengths)
         if keys_out is not None:
@@ -132,3 +143,53 @@ def wire_keys(wire: torch.Tensor, width: int, k: int, canonical: bool,
 
 
 wire_keys.launches = 0  # kernel launches (CUDA calls only)
+
+
+def _check_stream(words, k, read_len, n_reads) -> None:
+    if not 1 <= k <= MAX_K:
+        raise InvalidKmerLengthError()
+    if words.dtype not in (torch.int32, torch.uint32):
+        raise TypeError(f"stream_keys needs 32-bit words (int32 or uint32),"
+                        f" got {words.dtype}")
+    if words.dim() != 1 or not words.is_contiguous():
+        raise ValueError("stream_keys needs a contiguous 1-D word stream")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"stream_keys runs on cpu or cuda, not "
+                         f"{words.device}")
+    if read_len < 1 or n_reads < 0:
+        raise ValueError(f"stream_keys needs read_len >= 1 and n_reads >= "
+                         f"0, got {read_len} and {n_reads}")
+
+
+def stream_keys_reference(words: torch.Tensor, k: int, canonical: bool,
+                          read_len: int, n_reads: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the 16 phases' windows, canonicalized, and
+    ``phase_major_valid``."""
+    _check_stream(words, k, read_len, n_reads)
+    keys = extract_from_words(words.view(torch.int32), k)
+    if canonical:
+        keys = canonicalize(keys, k)
+    return keys, phase_major_valid(words.numel(), read_len, n_reads, k,
+                                   words.device)
+
+
+def stream_keys(words: torch.Tensor, k: int, canonical: bool,
+                read_len: int, n_reads: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(keys, valid) [16, nw] of the module docstring."""
+    if words.device.type == "cpu":
+        return stream_keys_reference(words, k, canonical, read_len, n_reads)
+    _check_stream(words, k, read_len, n_reads)
+    nw = words.numel()
+    keys = torch.empty((16, nw), dtype=torch.int64, device=words.device)
+    valid = torch.empty((16, nw), dtype=torch.bool, device=words.device)
+    if nw:
+        _LIB.launch("stream_keys_launch", words.data_ptr(), nw, k,
+                    int(canonical), int(read_len), int(n_reads),
+                    keys.data_ptr(), valid.data_ptr(), stream_of(words))
+        stream_keys.launches += 1
+    return keys, valid
+
+
+stream_keys.launches = 0  # kernel launches (CUDA calls only)

@@ -30,6 +30,18 @@ def check_words(x: torch.Tensor, what: str, dim: int | None = 2) -> None:
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
 
 
+def check_out(out: torch.Tensor | None, dtype: torch.dtype, shape: tuple,
+              device: torch.device, name: str) -> None:
+    """Raises unless ``out`` (a caller's output buffer, or None) is a
+    contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if out is None:
+        return
+    if (out.dtype != dtype or tuple(out.shape) != shape
+            or not out.is_contiguous() or out.device != device):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"shape {shape} on {device}")
+
+
 def to_u32(x: torch.Tensor) -> torch.Tensor:
     """32-bit words -> int64 holding their unsigned values."""
     return x.view(torch.int32).to(torch.int64) & MASK32

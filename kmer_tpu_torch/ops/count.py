@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.codes_keys import as_codes, codes_keys
 from ..kernels.segment_counts import segment_counts
 from ..packed import (
     SIGN_FLIP,
@@ -37,7 +38,6 @@ from ..packed import (
     key_from_hi_lo,
 )
 from ..types import Dna
-from .extract import canonicalize, extract_windows_batch
 
 # Sentinel lanes for invalid slots (the values of kmer_tpu/ops/count.py):
 # an invalid window's key is all ones, and its length lane SENTINEL_LEN.
@@ -205,10 +205,9 @@ def merge_tables(a: CountTable, b: CountTable) -> CountTable:
 def count_kmers(reads_codes: torch.Tensor, lengths: torch.Tensor, k: int,
                 canonical: bool = False) -> CountTable:
     """Count every k-window of padded reads: codes [B, L], lengths [B].
-    ``canonical`` counts min(kmer, revcomp); off for reference parity."""
-    keys, valid = extract_windows_batch(reads_codes, lengths, k)
-    if canonical:
-        keys = canonicalize(keys, k)
+    ``canonical`` counts min(kmer, revcomp); off for reference parity.
+    The windows come from one ``codes_keys`` launch."""
+    keys, valid = codes_keys(as_codes(reads_codes), lengths, k, canonical)
     return count_windows(keys, valid, k)
 
 

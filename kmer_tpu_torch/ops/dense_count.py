@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.codes_keys import as_codes, codes_keys
 from .count import CountTable
-from .extract import canonicalize, extract_windows_batch
 
 DENSE_MAX_K = 10
 DENSE_ROUTE_K = 6  # KmerCounter takes the dense route at and below this k
@@ -113,8 +113,6 @@ def count_kmers_dense(reads_codes: torch.Tensor, lengths: torch.Tensor,
     """Fixed-k counting through the dense histogram (k <= DENSE_MAX_K)."""
     if not (0 < k <= DENSE_MAX_K):
         raise ValueError(f"dense path requires k <= {DENSE_MAX_K}")
-    keys, valid = extract_windows_batch(reads_codes, lengths, k)
-    if canonical:
-        keys = canonicalize(keys, k)
+    keys, valid = codes_keys(as_codes(reads_codes), lengths, k, canonical)
     dense = dense_histogram(right_aligned_keys(keys, k), valid, k)
     return dense_to_table(dense, k)

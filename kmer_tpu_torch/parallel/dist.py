@@ -27,10 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels.codes_keys import as_codes, codes_keys
 from ..kernels.wire_keys import wire_keys
 from ..ops.count import (
     SENTINEL_KEY, SENTINEL_LEN, CountTable, count_packed, count_windows)
-from ..ops.extract import canonicalize, extract_windows_batch
 from ..ops.predicates import hash_u32
 from .comm import all_gather_tiled, all_reduce_sum, all_to_all_slabs, ring_shift
 from .mesh import Mesh
@@ -93,20 +93,19 @@ def _extract_with_halo(codes_l: torch.Tensor, lengths_l: torch.Tensor,
     """Keys and valid mask [b_loc, l_loc] of the windows that start in
     this rank's block of bases.  They need the first k-1 bases of the
     next seq rank (the ring halo; on one seq rank, zeros, as windows past
-    a read's end are invalid anyway)."""
+    a read's end are invalid anyway).  One ``codes_keys`` launch over the
+    halo'd rows, whose clamped lengths make its own rule
+    ``i <= length - k`` this mask."""
     b_loc, l_loc = codes_l.shape
     _check_halo(mesh, l_loc, k)
-    ext = codes_l
+    ext = as_codes(codes_l)
     if k > 1:
-        head = codes_l[:, : k - 1]
+        head = ext[:, : k - 1]
         halo = (ring_shift(head, mesh) if mesh.shape[1] > 1
                 else torch.zeros_like(head))
-        ext = torch.cat([codes_l, halo], dim=1)
-    keys, valid = extract_windows_batch(
-        ext, _local_lengths(lengths_l, mesh, l_loc, k), k)
-    if canonical:
-        keys = canonicalize(keys, k)
-    return keys, valid
+        ext = torch.cat([ext, halo], dim=1)
+    return codes_keys(ext, _local_lengths(lengths_l, mesh, l_loc, k), k,
+                      canonical)
 
 
 def _wire_keys_with_halo(words_l: torch.Tensor, lengths_l: torch.Tensor,

@@ -69,14 +69,14 @@ FAMILIES = {"capability": capability, "rates": rates, "copies": copies,
             "checkpoint": checkpoint, "distcount_step": distcount_step}
 # the phase families in the order chip_smoke.py runs them, with the count
 # path's kernels each launches on a card (the stream loop feeds raw codes:
-# its steps extract eagerly)
+# its steps make their keys with codes_keys)
 PHASE_KERNELS = {
     "feed": (),
     "device_phases": ("wire_keys", "segment_counts"),
     "count_phases": ("wire_keys", "segment_counts"),
     "read_stream": ("wire_keys", "segment_counts"),
-    "fold_step": ("wire_keys", "segment_counts"),
-    "stream_loop": ("segment_counts",),
+    "fold_step": ("wire_keys", "codes_keys", "segment_counts"),
+    "stream_loop": ("codes_keys", "segment_counts"),
     "checkpoint": (),
     "distcount_step": ("wire_keys", "segment_counts"),
     "matmul": (),

@@ -9,8 +9,10 @@ slots.  The batches stay on the card as codes and as the packed wire.
 
 probe_step (source 0), each best of 3 after a warm call:
 
-* extract: ``wire_keys`` from the wire, and beside it the eager
-  ``parallel.dist._extract_with_halo`` that a stream step fed codes runs;
+* extract: ``wire_keys`` from the wire, ``codes_keys`` on the same
+  batch's codes through ``parallel.dist._extract_with_halo`` (what a
+  stream step fed codes runs), and beside them the plain composition of
+  that halo'd extraction (the halo and ``codes_keys_reference``);
 * ``fold_windows_into_wide`` onto an empty accumulator, and onto the warm
   one it made;
 * ``count_windows`` and ``merge_into_wide`` apart;
@@ -41,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.codes_keys import codes_keys_reference
 from ..kernels.wire_keys import wire_keys
 from ..native import pack2bit_rows
 from ..ops.count import count_windows
@@ -94,6 +97,13 @@ def _keys(wire: torch.Tensor):
     return wire_keys(wire, WIDTH, K, True)
 
 
+def _plain_halo(codes, lengths):
+    """``_extract_with_halo`` on a (1,1) mesh with the plain version: the
+    zero halo, then ``codes_keys_reference``."""
+    ext = torch.cat([codes, codes.new_zeros((codes.shape[0], K - 1))], 1)
+    return codes_keys_reference(ext, lengths, K, True)
+
+
 def step_parts(device, codes, lengths, wire, cap, card):
     """probe_step's records."""
     site = SITES["step"]
@@ -104,10 +114,14 @@ def step_parts(device, codes, lengths, wire, cap, card):
                            seconds, detail or None, tables, card=card)
 
     (keys, valid), s = best_wall(lambda: _keys(wire), device)
-    _, eager = best_wall(lambda: _extract_with_halo(codes, lengths, K, mesh,
-                                                    True), device)
-    yield record("extract", {"wire_keys": s, "eager _extract_with_halo":
-                             eager}, windows=int(valid.sum()))
+    got, s_codes = best_wall(lambda: _extract_with_halo(
+        codes, lengths, K, mesh, True), device)
+    want, s_plain = best_wall(lambda: _plain_halo(codes, lengths), device)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    yield record("extract", {"wire_keys": s, "codes_keys": s_codes,
+                             "plain": s_plain}, same,
+                 windows=int(valid.sum()))
+    del got, want
     empty = WideCounts.empty(cap, device)
     acc1, s1 = best_wall(lambda: fold_windows_into_wide(empty, keys, valid,
                                                         K), device)

@@ -48,11 +48,10 @@ import torch
 from ..kernels.row_sort import row_sort
 from ..kernels.segment_copy import CopyPlan, segment_copy
 from ..kernels.segment_counts import segment_counts
+from ..kernels.wire_keys import stream_keys
 from ..native import pack2bit_rows
 from ..ops.count import SENTINEL_KEY, CountTable, count_windows
-from ..ops.extract import (
-    canonicalize, extract_from_words, simulate_coverage_reads,
-    simulate_reads)
+from ..ops.extract import simulate_coverage_reads, simulate_reads
 from ..packed import SIGN_FLIP
 from .common import Record, max_abs_err
 
@@ -82,7 +81,8 @@ def make_lanes(coverage: bool, device: torch.device,
                small: bool = False) -> torch.Tensor:
     """r3c's ``make_lanes`` (:79-102) as flipped int64 keys [N]: the first
     N canonical 21-mer windows of 2^20 reads of 150 bp (2^10 small) packed
-    back to back, phase-major as ``extract_from_words`` lays them out;
+    back to back, phase-major as ``extract_from_words`` lays them out
+    (one ``stream_keys`` launch on the card);
     ``uniform`` reads from seed 0, ``coverage`` reads of a 5 Mbp genome
     (5 kbp small) from seed 7, half reverse-complemented.  Windows that
     cross a read boundary or run past the stream's end count too, as in
@@ -95,7 +95,7 @@ def make_lanes(coverage: bool, device: torch.device,
         reads = simulate_reads(n_reads, READ_LEN, seed=0)
     words = torch.from_numpy(
         pack2bit_rows(reads.reshape(1, -1))[0].view(np.int32)).to(device)
-    keys = canonicalize(extract_from_words(words, K), K)
+    keys, _ = stream_keys(words, K, True, READ_LEN, n_reads)
     return keys.reshape(-1)[: SMALL_N if small else N] ^ SIGN_FLIP
 
 

@@ -5,8 +5,9 @@ The workload is ``fold_step``'s: batches of 150 bp reads of one 1 Mbp
 genome, the sustained stream's sources (r4c and r4d drew theirs from the
 genome's own generator: the same shapes and coverage), k = 21 canonical,
 4M slots, raw codes on the card, one ``make_sharded_stream_step`` on a
-(1,1) mesh (each step extracts its windows eagerly and folds them through
-the segment-count kernel, as ``runs.sustained`` does).
+(1,1) mesh (each step makes its windows' keys in one ``codes_keys``
+launch and folds them through the segment-count kernel, as
+``runs.sustained`` does).
 
 r4c: 8 batches of 524,288 reads, 151 steps, batch i being source i mod 8,
 after one warm step:

@@ -11,8 +11,9 @@ from ``default_rng(100 + i)`` with the same starts and the same reverse
 complement flips; the codes stay on the card; k = 21 canonical on a
 (1, 1) mesh into a 4,194,304-slot accumulator, a checkpoint opportunity
 every 16 batches at a target overhead of 10%, and a warm-up step outside
-the timed window.  The batches are raw codes, so each step extracts its
-windows eagerly and folds them through the segment-count kernel.
+the timed window.  The batches are raw codes, so each step makes its
+windows' keys in one ``codes_keys`` launch and folds them through the
+segment-count kernel.
 
 Phases, with their state under ``--dir``:
 
@@ -327,9 +328,9 @@ def record(dirpath: str, cfg: Config, process_walls: dict) -> dict:
         "launches": {"straight": straight["launches"],
                      "kill": kill["launches"],
                      "resume": resume["launches"]},
-        "engine": "kmer_tpu_torch: codes resident on the card, eager "
-                  "extraction, fold_windows_into_wide (the segment-count "
-                  "kernel), AsyncCheckpointer writes",
+        "engine": "kmer_tpu_torch: codes resident on the card, keys by "
+                  "the codes_keys kernel, fold_windows_into_wide (the "
+                  "segment-count kernel), AsyncCheckpointer writes",
         "script": "python -m kmer_tpu_torch.runs.sustained --phase all",
     }
 

@@ -7,7 +7,12 @@ this file by path).  numpy only, no JAX.
 * ``segment_copy``: plans whose destinations overlap;
 * ``tile_stages``: shift schedules and shapes at every path's edges;
 * ``tile_gather``: shapes, step counts and tables at every path's edges;
-* ``wire_keys``: row widths and k, and rows at the edges of their length.
+* ``wire_keys``: row widths and k, and rows at the edges of their length;
+* ``codes_keys``: row widths and k, rows at the edges of their length,
+  blocks at the edges of their staging (one window a row, one long row),
+  views at byte offsets, codes above 3 and the halo'd block;
+* ``stream_keys``: streams of reads whose length does and does not divide
+  16, at the edges of the kernel's blocks of words.
 """
 
 import numpy as np
@@ -145,6 +150,72 @@ def wire_case(width: int, k: int, rows: int = 12, seed: int = 0):
     lengths[0], lengths[1], lengths[2] = 0, width, max(k - 1, 0)
     lengths[3] = width
     return codes, lengths
+
+
+# codes_keys: the wire's widths and a 170-base halo'd row, every k the
+# kernel treats apart (16 and 17 cross a staged word, 32 takes no shift)
+CODES_WIDTHS = [16, 48, 150, 161, 170]
+CODES_KS = [1, 2, 15, 16, 17, 21, 31, 32]
+# the kernel's output slots a block (kSlotsPerBlock)
+CODES_BLOCK = 4096
+# (name, rows, width, k): a block spans 4,096 rows of one window each
+# (the most staged bytes a block can need) and the next block is partial;
+# one row longer than 2^16 bases spans many blocks; rows of 130 windows
+# cut by every block edge
+CODES_SHAPES = [("one_window_rows", CODES_BLOCK + 5, 32, 32),
+                ("one_window_rows_k1", CODES_BLOCK + 5, 1, 1),
+                ("long_row", 1, (1 << 16) + 4321, 31),
+                ("cut_rows", 70, 150, 21)]
+
+
+def codes_case(width: int, k: int, rows: int = 12, seed: int = 0):
+    """(codes [rows, width] uint8, lengths [rows] int32): ``wire_case``'s
+    rows (lengths of 0, k - 1, width and random; t-leading rows and an
+    all-t row), lengths as the count paths pass them."""
+    codes, lengths = wire_case(width, k, rows, seed)
+    return codes, lengths.astype(np.int32)
+
+
+def codes_shape(name: str, seed: int = 0):
+    """(codes, lengths, k) of a ``CODES_SHAPES`` case."""
+    _, rows, width, k = next(c for c in CODES_SHAPES if c[0] == name)
+    rng = np.random.default_rng(seed + sum(map(ord, name)))
+    codes = rng.integers(0, 4, (rows, width)).astype(np.uint8)
+    codes[::7, 0] = 3
+    lengths = rng.integers(0, width + 1, rows).astype(np.int32)
+    lengths[::5] = width
+    return codes, lengths, k
+
+
+def wide_codes(width: int, k: int, rows: int = 12, seed: int = 0):
+    """``codes_case`` with a few codes above 3 (up to 255) in one row: the
+    plain version ORs their high bits into earlier bases' slots, and the
+    kernel's block that holds them takes the plain formula."""
+    codes, lengths = codes_case(width, k, rows, seed)
+    rng = np.random.default_rng(seed + 7)
+    at = rng.integers(0, width, 3)
+    codes[rows // 2, at] = rng.integers(4, 256, 3).astype(np.uint8)
+    return codes, lengths
+
+
+# stream_keys: reads back to back, read lengths that divide 16 and not;
+# (n_reads, read_len): streams of a few words, of one block of 512 words
+# and of a partial second one, and one read of the whole stream (chr)
+STREAM_KS = [1, 15, 16, 17, 21, 31, 32]
+STREAM_CASES = [(3, 16), (5, 150), (55, 150), (64, 128), (7, 161),
+                (1, 16 * 1024 + 16), (2, 33)]
+STREAM_BLOCK = 512  # words a kernel block covers (kStreamWords)
+
+
+def stream_case(n_reads: int, read_len: int, seed: int = 0) -> np.ndarray:
+    """Codes [n_reads * read_len] uint8 of reads laid back to back, padded
+    with random codes to whole 16-base words, with a t-leading run; pack
+    them with ``pack2bit_rows(codes[None])[0]``."""
+    rng = np.random.default_rng(seed + 31 * read_len + n_reads)
+    n = n_reads * read_len
+    codes = rng.integers(0, 4, -(-n // 16) * 16).astype(np.uint8)
+    codes[: min(40, n)] = 3
+    return codes
 
 
 # row_sort: int64 keys (signed order) and 32-bit words (unsigned order);

@@ -47,7 +47,8 @@ def test_entry_prints_kmer_tpu_keys_and_counts(mode, fn):
     assert detail["total_kmers"] == READS * (150 - 21 + 1)
     assert detail["device"] == "cpu"
     # the plain versions run on the CPU, so no kernel launched
-    assert detail["launches"] == {"wire_keys": 0, "segment_counts": 0}
+    assert detail["launches"] == {"wire_keys": 0, "codes_keys": 0,
+                                  "stream_keys": 0, "segment_counts": 0}
 
 
 @pytest.fixture

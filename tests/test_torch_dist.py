@@ -118,7 +118,7 @@ def test_halo_wire_gives_dist_valid_mask(worlds, shape, k):
     """One wire_keys call over a rank's words, the next seq rank's halo
     words and the length column clamp(len - s*l_loc, 0, l_loc + k - 1)
     gives kmer_tpu's halo windows and its valid mask (dist.py:85-86)
-    in every slot, as does the eager extraction."""
+    in every slot, as does the codes path (``codes_keys``)."""
     n = shape[0] * shape[1]
     codes, lengths = tasks.make_batch(3, N_READS, READ_LEN)
     got = worlds.run(shape, tasks.halo_task, shape, k, True, 3, N_READS,

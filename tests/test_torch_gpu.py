@@ -26,14 +26,19 @@ from kmer_tpu_torch.kernels.tile_gather import (
     tile_gather, tile_gather_reference)
 from kmer_tpu_torch.kernels.tile_stages import (
     tile_stages, tile_stages_reference)
-from kmer_tpu_torch.kernels.wire_keys import wire_keys, wire_keys_reference
+from kmer_tpu_torch.kernels.codes_keys import codes_keys, codes_keys_reference
+from kmer_tpu_torch.kernels.wire_keys import (
+    stream_keys, stream_keys_reference, wire_keys, wire_keys_reference)
+from kmer_tpu_torch.kernels import launches
 from kmer_tpu_torch.native import pack2bit_rows
 from kmer_tpu_torch.packed import SIGN_FLIP
 from kmer_tpu_torch.probes import PHASE_KERNELS
 from kernel_edges import (
-    EDGES, GATHER_SHAPES, GATHER_STEPS, GATHER_TABLES, LARGE, OVERLAP_PLANS,
-    ROW_SORT_CASES, SCHEDULES, STAGE_SHAPES, WIRE_KS, WIRE_WIDTHS, edge_runs,
-    gather_case, overlap_plan, row_sort_case, stage_shape_id, wire_case)
+    CODES_KS, CODES_SHAPES, CODES_WIDTHS, EDGES, GATHER_SHAPES, GATHER_STEPS,
+    GATHER_TABLES, LARGE, OVERLAP_PLANS, ROW_SORT_CASES, SCHEDULES,
+    STAGE_SHAPES, STREAM_CASES, STREAM_KS, WIRE_KS, WIRE_WIDTHS, codes_case,
+    codes_shape, edge_runs, gather_case, overlap_plan, row_sort_case,
+    stage_shape_id, stream_case, wide_codes, wire_case)
 
 L = 128
 
@@ -384,6 +389,143 @@ def test_wire_keys_kernel_matches_plain_on_cuda(width, k, canonical):
             assert int(keys[-1]) == -7 and (lead == 0 or int(keys[0]) == -7)
 
 
+def _codes_at(codes, dev, offset):
+    """codes as a [B, L] view ``offset`` bytes into a buffer on ``dev``."""
+    buf = torch.zeros(codes.size + 32, dtype=torch.uint8, device=dev)
+    view = buf[offset: offset + codes.size].view(codes.shape)
+    view.copy_(torch.from_numpy(codes))
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+def _check_codes_keys(codes, lengths, k, canonical, dev,
+                      offsets=(0, 1, 7, 15)):
+    """The kernel equals the plain version in every slot, valid or not,
+    on codes at byte offsets, int32 and int64 lengths, into fresh tensors
+    and into views of flat buffers 16-byte aligned and 8 bytes past."""
+    b, m = codes.shape[0], codes.shape[1] - k + 1
+    for off in offsets:
+        c = _codes_at(codes, dev, off)
+        for lens in (lengths, lengths.astype(np.int64)):
+            ln = torch.from_numpy(lens).to(dev)
+            want, want_valid = codes_keys_reference(c, ln, k, canonical)
+            before = codes_keys.launches
+            got, valid = codes_keys(c, ln, k, canonical)
+            assert codes_keys.launches == before + 1
+            assert torch.equal(got, want) and torch.equal(valid, want_valid)
+        for lead in (0, 1):
+            keys = torch.full((b * m + 2,), -7, dtype=torch.int64, device=dev)
+            ok = torch.zeros(b * m + 2, dtype=torch.bool, device=dev)
+            view = keys[lead: lead + b * m].view(b, m)
+            assert view.data_ptr() % 16 == 8 * lead
+            codes_keys(c, ln, k, canonical, keys_out=view,
+                       valid_out=ok[1: 1 + b * m].view(b, m))
+            assert torch.equal(view, want)
+            assert torch.equal(ok[1: 1 + b * m].view(b, m), want_valid)
+            assert int(keys[-1]) == -7 and (lead == 0 or int(keys[0]) == -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("width, k", [(w, k) for w in CODES_WIDTHS
+                                      for k in CODES_KS if k <= w])
+def test_codes_keys_kernel_matches_plain_on_cuda(width, k, canonical):
+    dev = _cuda()
+    codes, lengths = codes_case(width, k, rows=300)
+    _check_codes_keys(codes, lengths, k, canonical, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [c[0] for c in CODES_SHAPES])
+def test_codes_keys_block_edges_on_cuda(name):
+    """One window a row (a block's most staged bytes), one long row over
+    many blocks, rows cut by the block edges."""
+    dev = _cuda()
+    codes, lengths, k = codes_shape(name)
+    _check_codes_keys(codes, lengths, k, True, dev, offsets=(0, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canonical", [False, True])
+def test_codes_keys_codes_above_3_on_cuda(canonical):
+    """A block holding codes above 3 takes the plain formula."""
+    dev = _cuda()
+    codes, lengths = wide_codes(150, 21, rows=300)
+    _check_codes_keys(codes, lengths, 21, canonical, dev, offsets=(0, 5))
+
+
+@pytest.mark.gpu
+def test_codes_keys_refuses_other_dtypes_on_cuda():
+    """Codes of another dtype raise TypeError and launch nothing; B = 0
+    launches nothing."""
+    dev = _cuda()
+    codes, lengths = codes_case(150, 21)
+    ln = torch.from_numpy(lengths).to(dev)
+    before = codes_keys.launches
+    for dtype in (torch.int64, torch.int32, torch.int8):
+        with pytest.raises(TypeError, match="uint8"):
+            codes_keys(torch.from_numpy(codes).to(dev, dtype), ln, 21, True)
+    keys, valid = codes_keys(torch.zeros((0, 150), dtype=torch.uint8,
+                                         device=dev), ln[:0], 21, True)
+    assert keys.shape == valid.shape == (0, 130)
+    assert codes_keys.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", STREAM_KS)
+@pytest.mark.parametrize("n_reads, read_len", STREAM_CASES)
+def test_stream_keys_kernel_matches_plain_on_cuda(n_reads, read_len, k,
+                                                  canonical):
+    """Every slot of the 16 phase rows, tail windows included, on words at
+    a 16-byte boundary and 4 bytes past one."""
+    dev = _cuda()
+    words = pack2bit_rows(stream_case(n_reads, read_len)[None, :])[0]
+    buf = torch.zeros(words.size + 1, dtype=torch.int32, device=dev)
+    for w in (buf[:-1], buf[1:]):
+        w.copy_(_t(words))
+        want, want_valid = stream_keys_reference(w, k, canonical, read_len,
+                                                 n_reads)
+        before = stream_keys.launches
+        got, valid = stream_keys(w, k, canonical, read_len, n_reads)
+        assert stream_keys.launches == before + 1
+        assert torch.equal(got, want) and torch.equal(valid, want_valid)
+
+
+@pytest.mark.gpu
+def test_stream_keys_refuses_on_cuda():
+    dev = _cuda()
+    words = _t(np.arange(64, dtype=np.uint32)).to(dev)
+    before = stream_keys.launches
+    with pytest.raises(TypeError, match="32-bit"):
+        stream_keys(words.to(torch.int64), 21, True, 150, 1)
+    keys, valid = stream_keys(words[:0], 21, True, 150, 0)
+    assert keys.shape == valid.shape == (16, 0)
+    assert stream_keys.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 5, 21, 32])
+def test_halo_codes_on_cuda_matches_cpu(k):
+    """``_extract_with_halo`` (one codes_keys launch a rank) on the card
+    equals its CPU run (the plain version), keys and mask, on a one-rank
+    mesh."""
+    from kmer_tpu_torch.parallel.dist import _extract_with_halo
+    from kmer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _cuda()
+    codes, lengths = codes_case(170, k, rows=64)
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    launches = codes_keys.launches
+    got = _extract_with_halo(c.to(dev), ln.to(dev), k,
+                             make_mesh((1, 1), device=dev), True)
+    assert codes_keys.launches == launches + 1
+    want = _extract_with_halo(c, ln, k, make_mesh((1, 1), device="cpu"),
+                              True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 def _fold_inputs(seed, n, k, pool):
     """Left-aligned k-mer keys drawn from ``pool`` values (a few all-t),
     and a validity mask."""
@@ -488,9 +630,10 @@ def test_count_dna_on_cuda_launches_the_kernel(k, canonical):
     dev = _cuda()
     dna = "".join("ACGT"[c] for c in np.random.default_rng(k).integers(
         0, 4, 5000)) + "T" * 40
-    before = segment_counts.launches
+    before = segment_counts.launches, codes_keys.launches
     got = count_dna(dna, k, canonical, device=dev)
-    assert segment_counts.launches == before + 1
+    assert (segment_counts.launches, codes_keys.launches) == (
+        before[0] + 1, before[1] + 1)
     want = count_dna(dna, k, canonical, device="cpu")
     for g, w in zip(got.trim().to_numpy(), want.trim().to_numpy()):
         np.testing.assert_array_equal(g, w)
@@ -622,8 +765,9 @@ def _same_trimmed(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("k, kernel_launches", [(6, 0), (21, 1)])
 def test_kmer_counter_on_cuda_equals_cpu(k, kernel_launches):
-    """The dense route (k = 6) launches no segment-count kernel; the sort
-    route (k = 21) launches it once a step."""
+    """Both routes make their keys in one codes_keys launch a step; the
+    dense route (k = 6) launches no segment-count kernel, the sort route
+    (k = 21) launches it once a step."""
     from kmer_tpu_torch.config import EngineConfig
     from kmer_tpu_torch.models import KmerCounter
     from kmer_tpu_torch.ops.extract import simulate_reads
@@ -634,11 +778,12 @@ def test_kmer_counter_on_cuda_equals_cpu(k, kernel_launches):
     lengths = np.random.default_rng(k).integers(0, 151, 2000).astype(
         np.int32)
     cfg = EngineConfig(k=k, canonical=True)
-    before = _launches()
+    before = _launches(), codes_keys.launches
     counter = KmerCounter(cfg, device=dev)
     got = counter.step(reads, lengths)
     assert got.keys.is_cuda
-    assert _launches() == (before[0], before[1] + kernel_launches)
+    assert _launches() == (before[0][0], before[0][1] + kernel_launches)
+    assert codes_keys.launches == before[1] + 1
     counter.check_exact()
     _same_trimmed(got, KmerCounter(cfg, device="cpu").step(reads, lengths))
 
@@ -649,9 +794,10 @@ def test_graft_entry_on_cuda_equals_cpu():
 
     _cuda()
     fn, args = entry("cuda")
-    before = segment_counts.launches
+    before = segment_counts.launches, codes_keys.launches
     got = fn(*args)
-    assert segment_counts.launches == before + 1
+    assert (segment_counts.launches, codes_keys.launches) == (
+        before[0] + 1, before[1] + 1)
     cpu_fn, cpu_args = entry("cpu")
     _same_trimmed(got, cpu_fn(*cpu_args))
 
@@ -826,14 +972,13 @@ def test_phase_probes_on_cuda_equal_cpu(name, tmp_path):
     for d in (dev, torch.device("cpu")):
         work = tmp_path / d.type
         work.mkdir()
-        before = _launches()
+        before = launches()
         runs[d.type] = list(FAMILIES[name].run(d, small=True,
                                                workdir=str(work)))
-        launched = tuple(n for n, a, b in zip(
-            ("wire_keys", "segment_counts"), _launches(), before) if a > b)
+        launched = {n for n, a in launches().items() if a > before[n]}
         assert all(r.correct for r in runs[d.type]), d
-        assert launched == (PHASE_KERNELS[name] if d.type == "cuda"
-                            else ())
+        assert launched == (set(PHASE_KERNELS[name]) if d.type == "cuda"
+                            else set())
     assert [r.card for r in runs["cuda"]] != [None] * len(runs["cuda"])
     assert ([r.tables for r in runs["cuda"]]
             == [r.tables for r in runs["cpu"]])

@@ -1,12 +1,15 @@
 """numpy models of the index arithmetic of the kernels
 ``csrc/segment_copy.cu``, ``csrc/tile_stages.cu``, ``csrc/tile_gather.cu``
-and ``csrc/wire_keys.cu``, held against their plain PyTorch versions (which
-``tests/test_torch_probes.py`` and ``tests/test_torch_wire_keys.py`` hold
-against the Pallas bodies and kmer_tpu).  A CUDA kernel cannot run here;
-these models repeat its indices step by step (ownership of overlapping
-copies, the 16-byte body's split and realignment, the composed shift and
-gathers, the warp layouts' partner reads, the wire's three-word windows
-and their 16-byte pairs), so a wrong index shows here before the card.
+``csrc/wire_keys.cu`` and ``csrc/codes_keys.cu``, held against their
+plain PyTorch versions (which ``tests/test_torch_probes.py``,
+``tests/test_torch_wire_keys.py`` and ``tests/test_torch_codes_keys.py``
+hold against the Pallas bodies and kmer_tpu).  A CUDA kernel cannot run
+here; these models repeat its indices step by step (ownership of
+overlapping copies, the 16-byte body's split and realignment, the composed
+shift and gathers, the warp layouts' partner reads, the wire's three-word
+windows and their 16-byte pairs, the word stream's phase rows, the codes'
+staged byte range and its packing), so a wrong index shows here before the
+card.
 Every comparison is exact.
 """
 
@@ -19,10 +22,14 @@ from kmer_tpu_torch.kernels.segment_copy import (
 from kmer_tpu_torch.kernels.tile_gather import tile_gather_reference
 from kmer_tpu_torch.kernels.tile_stages import (
     GROUP, tile_stages, tile_stages_reference)
-from kmer_tpu_torch.kernels.wire_keys import wire_keys_reference
+from kmer_tpu_torch.kernels.codes_keys import codes_keys_reference
+from kmer_tpu_torch.kernels.wire_keys import (
+    stream_keys_reference, wire_keys_reference)
 from kernel_edges import (
-    GATHER_SHAPES, GATHER_TABLES, OVERLAP_PLANS, SCHEDULES, STAGE_SHAPES,
-    WIRE_KS, WIRE_WIDTHS, gather_case, overlap_plan, stage_shape_id,
+    CODES_BLOCK, CODES_KS, CODES_SHAPES, CODES_WIDTHS, GATHER_SHAPES,
+    GATHER_TABLES, OVERLAP_PLANS, SCHEDULES, STAGE_SHAPES, STREAM_BLOCK,
+    STREAM_CASES, STREAM_KS, WIRE_KS, WIRE_WIDTHS, codes_case, codes_shape,
+    gather_case, overlap_plan, stage_shape_id, stream_case, wide_codes,
     wire_case)
 
 
@@ -619,8 +626,13 @@ def window_key_model(staged, base, nw, i, k, canonical):
     mask = np.uint64(((1 << 64) - 1) ^ ((1 << (64 - 2 * k)) - 1))
     key = ((((w0 << np.uint64(32)) | w1) << sh)
            | ((w2 << sh) >> np.uint64(32))) & mask
-    if not canonical:
-        return key
+    return canonical_model(key, k) if canonical else key
+
+
+def canonical_model(key, k):
+    """canonical_key: the reverse complement is ~key, brev, a swap of each
+    pair's two bits and << 64 - 2k; the canonical key is the unsigned
+    minimum."""
     rc = brev64(~key)
     one = np.uint64(1)
     rc = ((rc >> one) & _LOW_BITS) | ((rc & _LOW_BITS) << one)
@@ -737,3 +749,219 @@ def test_reverse_complement_by_brev_is_revcomp_packed():
             rc = rc << np.uint64(64 - 2 * k)
         want = revcomp_packed(torch.from_numpy(key.view(np.int64).copy()), k)
         np.testing.assert_array_equal(rc.view(np.int64), want.numpy())
+
+
+# --- codes_keys: the staged byte range, its packing and the pair layout --
+
+
+def pack4_model(x):
+    """pack4: the low two bits of 4 bytes of a little-endian word, byte 0
+    in the top two of 8 bits."""
+    t = x & np.uint32(0x03030303)
+    return ((t << np.uint32(6)) | (t >> np.uint32(4)) | (t >> np.uint32(14))
+            | (t >> np.uint32(24))) & np.uint32(0xFF)
+
+
+def codes_smem_words(L, k):
+    """codes_keys_launch: the staged words a block may need."""
+    m = L - k + 1
+    spanned = (m - 1 + CODES_BLOCK - 1) // m
+    return ((spanned + 1) * (k - 1) + CODES_BLOCK + 30) // 16
+
+
+def codes_keys_model(buf, off, n_rows, L, k, canonical, lengths, lead):
+    """codes_keys_kernel over every block, on codes at ``buf[off:]`` (buf
+    16-byte aligned at 0), into an output ``lead`` slots past a 16-byte
+    boundary: each block's byte range, staged from the 16-byte boundary
+    at or before it in 16-byte loads (byte loads at its ends) packed to
+    words, the wide flag, each pair's (row, window) from one division and
+    a step.  Returns (keys uint64, valid), asserting every slot is written
+    once and no block stages more than the launch allows or reads outside
+    the codes."""
+    m = L - k + 1
+    n_slots = n_rows * m
+    keys = np.zeros(n_slots, np.uint64)
+    valid = np.zeros(n_slots, bool)
+    writes = np.zeros(n_slots, np.int64)
+    smem = codes_smem_words(L, k)
+    chunks = np.zeros(-(-(off + n_rows * L) // 16) * 16, np.uint8)
+    chunks[: buf.size] = buf[: chunks.size]
+    for e0 in range(0, n_slots, CODES_BLOCK):
+        n = min(CODES_BLOCK, n_slots - e0)
+        r0, i0 = divmod(e0, m)
+        r1, i1 = divmod(e0 + n - 1, m)
+        lo, hi = off + r0 * L + i0, off + r1 * L + i1 + k
+        assert off <= lo < hi <= off + n_rows * L
+        a0 = lo & ~15
+        nws = (hi - a0 + 15) // 16
+        assert nws <= smem
+        a = a0 + 16 * np.arange(nws)
+        whole = (a >= lo) & (a + 16 <= hi)
+        raw = chunks[a[:, None] + np.arange(16)]  # the 16 bytes at a
+        inside = (a[:, None] + np.arange(16) >= lo) & (
+            a[:, None] + np.arange(16) < hi)
+        raw = np.where(whole[:, None] | inside, raw, 0).astype(np.uint8)
+        v = np.ascontiguousarray(raw).view("<u4").reshape(nws, 4)
+        loaded = (pack4_model(v[:, 0]) << np.uint32(24)
+                  | pack4_model(v[:, 1]) << np.uint32(16)
+                  | pack4_model(v[:, 2]) << np.uint32(8)
+                  | pack4_model(v[:, 3]))
+        by_byte = np.zeros(nws, np.uint32)
+        for j in range(16):
+            by_byte |= (raw[:, j].astype(np.uint32) & np.uint32(3)) << \
+                np.uint32(30 - 2 * j)
+        staged = np.where(whole, loaded, by_byte)
+        wide = bool((np.bitwise_or.reduce(raw.reshape(-1)) & 0xFC) != 0)
+        skew = lo - a0
+        q0 = (e0 + lead) >> 1
+        g = 2 * (q0 + np.arange(((e0 + n - 1 + lead) >> 1) - q0 + 1)) - lead
+        ll = g - e0
+        assert ll.min() >= -1
+        dr = np.where(ll < 0, 0, (i0 + ll) // m)
+        i = np.where(ll < 0, i0 - 1, i0 + ll - dr * m)
+        slots = [(ll, dr, i)]
+        i2 = i + 1
+        wrap = i2 == m
+        slots.append((ll + 1, dr + wrap, np.where(wrap, 0, i2)))
+        first, second = ll >= 0, ll + 1 < n
+        assert ((g[first & second] + lead) % 2 == 0).all()  # 16-byte stores
+        for li, dd, ii in slots:
+            ok = (li >= 0) & (li < n)
+            dd, ii = dd[ok], ii[ok]
+            at = e0 + li[ok]
+            np.testing.assert_array_equal((r0 + dd) * m + ii, at)
+            if not wide:
+                keys[at] = window_key_model(staged, 0, nws,
+                                            dd * L + ii - i0 + skew, k,
+                                            canonical)
+            else:
+                start = off + (r0 + dd) * L + ii
+                key = np.zeros(at.size, np.uint64)
+                for j in range(k):
+                    key |= buf[start + j].astype(np.uint64) << np.uint64(
+                        62 - 2 * j)
+                keys[at] = canonical_model(key, k) if canonical else key
+            valid[at] = ii <= lengths[r0 + dd].astype(np.int64) - k
+            writes[at] += 1
+    assert (writes == 1).all()
+    return keys.reshape(n_rows, m), valid.reshape(n_rows, m)
+
+
+def _codes_model_check(codes, lengths, k, canonical, offsets=(0, 5, 15)):
+    """The model at byte offsets of the codes and both output leads
+    against the plain version."""
+    want, want_valid = codes_keys_reference(
+        torch.from_numpy(codes), torch.from_numpy(lengths), k, canonical)
+    n_rows, L = codes.shape
+    for off in offsets:
+        buf = np.zeros(off + codes.size + 16, np.uint8)
+        buf[off: off + codes.size] = codes.reshape(-1)
+        for lead in (0, 1):
+            got, valid = codes_keys_model(buf, off, n_rows, L, k, canonical,
+                                          lengths, lead)
+            np.testing.assert_array_equal(got.view(np.int64), want.numpy())
+            np.testing.assert_array_equal(valid, want_valid.numpy())
+
+
+CODES_CASES = [(w, k) for w in CODES_WIDTHS for k in CODES_KS if k <= w]
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("width, k", CODES_CASES)
+def test_codes_keys_model_matches_reference(width, k, canonical):
+    """Every slot, valid or not, with the codes 0, 5 and 15 bytes past a
+    16-byte boundary and outputs 16-byte aligned and 8 bytes past."""
+    codes, lengths = codes_case(width, k, rows=40)
+    _codes_model_check(codes, lengths, k, canonical)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CODES_SHAPES])
+def test_codes_keys_model_block_edges(name):
+    """One window a row (a block's most staged bytes), one long row over
+    many blocks, rows cut by the block edges."""
+    codes, lengths, k = codes_shape(name)
+    _codes_model_check(codes, lengths, k, True, offsets=(3,))
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_codes_keys_model_codes_above_3(canonical):
+    """A block holding a code above 3 takes the plain formula; the
+    others stay on the staged words; both equal the plain version."""
+    codes, lengths = wide_codes(150, 21, rows=80)
+    _codes_model_check(codes, lengths, 21, canonical, offsets=(1,))
+
+
+@pytest.mark.parametrize("width, k", [(150, 21), (170, 21), (32, 32),
+                                      (1, 1), (161, 2), ((1 << 20), 31)])
+def test_codes_keys_blocks_stay_in_shared_memory(width, k):
+    """A block stages at most 32 KB plus two words (m = 1, k = 32: 4,096
+    rows of 32 bases), under the 48 KB a launch takes without an opt-in;
+    the sustained batch's halo'd rows (170 bases, k = 21) take 1.2 KB."""
+    words = codes_smem_words(width, k)
+    assert 4 * words <= 32 * 1024 + 8
+    if (width, k) == (170, 21):
+        assert 4 * words <= 1300
+
+
+# --- stream_keys: the word stream's phase rows ----------------------------
+
+
+def stream_keys_model(words, k, canonical, read_len, n_reads, lead):
+    """stream_keys_kernel over every block: 512 words and the two after
+    them staged, each of the 16 phase rows' slots of the block in pairs
+    aligned to 16 bytes of an output ``lead`` slots past such a boundary,
+    the position's offset in its read from one 32-bit remainder and a
+    step of 16.  Returns (keys uint64 [16, nw], valid), asserting every
+    slot is written once."""
+    nw = words.size
+    keys = np.zeros(16 * nw, np.uint64)
+    valid = np.zeros(16 * nw, bool)
+    writes = np.zeros(16 * nw, np.int64)
+    last = n_reads * read_len - k
+    assert 16 * (nw + 1) < 1 << 32  # the narrow remainder
+    for w0 in range(0, nw, STREAM_BLOCK):
+        n = min(STREAM_BLOCK, nw - w0)
+        nws = min(STREAM_BLOCK + 2, nw - w0)
+        staged = words[w0: w0 + nws]
+        for r in range(16):
+            e0 = r * nw + w0
+            q0 = (e0 + lead) >> 1
+            g = 2 * (q0 + np.arange(((e0 + n - 1 + lead) >> 1) - q0 + 1)) \
+                - lead
+            ll = g - e0
+            pos = 16 * (w0 + ll) + r
+            rem = np.where(ll >= 0, pos, pos + 16) % read_len
+            for h in (0, 1):
+                ok = (ll + h >= 0) & (ll + h < n)
+                if h == 1:
+                    step = ll >= 0
+                    rem = np.where(step, rem + 16, rem)
+                    rem = np.where(rem >= read_len, rem % read_len, rem)
+                at = e0 + ll[ok] + h
+                keys[at] = window_key_model(staged, 0, nws,
+                                            16 * (ll[ok] + h) + r, k,
+                                            canonical)
+                valid[at] = (rem[ok] <= read_len - k) & (
+                    pos[ok] + 16 * h <= last)
+                writes[at] += 1
+    assert (writes == 1).all()
+    return keys.reshape(16, nw), valid.reshape(16, nw)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", STREAM_KS)
+@pytest.mark.parametrize("n_reads, read_len", STREAM_CASES)
+def test_stream_keys_model_matches_reference(n_reads, read_len, k,
+                                             canonical):
+    """Every slot of the 16 phase rows, tail windows included, on outputs
+    16-byte aligned and 8 bytes past."""
+    from kmer_tpu_torch.native import pack2bit_rows
+
+    words = pack2bit_rows(stream_case(n_reads, read_len)[None, :])[0]
+    want, want_valid = stream_keys_reference(_t(words), k, canonical,
+                                             read_len, n_reads)
+    for lead in (0, 1):
+        got, valid = stream_keys_model(words, k, canonical, read_len,
+                                       n_reads, lead)
+        np.testing.assert_array_equal(got.view(np.int64), want.numpy())
+        np.testing.assert_array_equal(valid, want_valid.numpy())
