@@ -3,7 +3,8 @@
   python -m kmer_tpu_torch datagen --rows 1000 --out data.csv [--seed 0]
   python -m kmer_tpu_torch count   --input data.csv|reads.fastq|ref.fasta -k 8
                                    [--canonical] [--top 10]
-                                   [--from-dna-column] [--device cuda]
+                                   [--from-dna-column] [--trace DIR]
+                                   [--device cuda]
   python -m kmer_tpu_torch extract --dna ACGTACGT -k 3
   python -m kmer_tpu_torch query   --input data.csv [--index]
                                    --eq acga | --prefix ac | --pattern angry
@@ -78,6 +79,8 @@ def _cmd_extract(args) -> int:
 
 
 def _cmd_count(args) -> int:
+    if args.trace:
+        return _traced_count(args)
     from .api import KmerTable
     from .ops.wide import WideCounts
     from .packed import PackedKmers, hi_lo_from_key
@@ -142,6 +145,26 @@ def _cmd_count(args) -> int:
             save_table(t, args.save, meta)
         log.info("saved table to %s", args.save)
     return 0
+
+
+def _traced_count(args) -> int:
+    """``count`` under a ``torch.profiler``, its Chrome trace written to
+    ``args.trace`` with the feeder thread's spans merged in on the trace's
+    clock (``utils.profiling.write_trace``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils import profiling
+
+    activities = [ProfilerActivity.CPU]
+    if args.device.startswith("cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        rc = _cmd_count(argparse.Namespace(**{**vars(args), "trace": None}))
+    os.makedirs(args.trace, exist_ok=True)
+    path = os.path.join(args.trace, f"count.{os.getpid()}.pt.trace.json")
+    profiling.write_trace(prof, path)
+    print(f"# trace written to {path}", file=sys.stderr)
+    return rc
 
 
 def _printed_rows(result, top: int):
@@ -617,6 +640,11 @@ def main(argv=None) -> int:
         "--from-dna-column", action="store_true",
         help="CSV: count the k-mers of the dna column instead of grouping "
         "the kmer column",
+    )
+    c.add_argument(
+        "--trace", metavar="DIR", default=None,
+        help="write a torch.profiler trace of the count to DIR, with the "
+        "feeder thread's spans on the trace's clock",
     )
     _device_flag(c)
     c.set_defaults(fn=_cmd_count)

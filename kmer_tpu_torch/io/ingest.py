@@ -14,6 +14,7 @@ from typing import Iterator
 import numpy as np
 
 from ..native import fasta_encode, fastq_encode, record_boundary
+from ..utils.profiling import span
 
 DEFAULT_CHUNK_BYTES = 256 << 20
 
@@ -33,41 +34,45 @@ def iter_record_chunks(
 
     Every window starts at a validated record start and ends immediately
     before one, so the concatenation of all windows' records equals the
-    whole file's.
+    whole file's.  Each step (its reads, the join with the carry, the
+    boundary search) is a ``feed.read`` span with the bytes it read.
     """
     if chunk_bytes <= 0:
         raise ValueError("chunk_bytes must be positive")
     carry = b""
     with _open_stream(path) as f:
         while True:
-            # read in bounded increments: file.read(n) preallocates ~n bytes
-            parts = []
-            got = 0
-            while got < chunk_bytes:
-                b = f.read(min(64 << 20, chunk_bytes - got))
-                if not b:
+            with span("feed.read") as step:
+                # read in bounded increments: file.read(n) preallocates
+                # ~n bytes
+                parts = []
+                got = 0
+                while got < chunk_bytes:
+                    b = f.read(min(64 << 20, chunk_bytes - got))
+                    if not b:
+                        break
+                    parts.append(b)
+                    got += len(b)
+                step.nbytes = got
+                if not parts:
                     break
-                parts.append(b)
-                got += len(b)
-            if not parts:
-                break
-            block = parts[0] if len(parts) == 1 else b"".join(parts)
-            data = (carry + block) if carry else block
-            # find a boundary near the end; widen backwards while the tail
-            # window is mid-record
-            window = _TAIL_WINDOW
-            cut = len(data)
-            while window < 2 * len(data):
-                b = record_boundary(data, max(1, len(data) - window), fmt)
-                if b < len(data):
-                    cut = b
-                    break
-                window *= 2
-            if cut == len(data) or cut == 0:
-                carry = data  # no internal boundary: read on
-                continue
-            yield data[:cut]
-            carry = data[cut:]
+                block = parts[0] if len(parts) == 1 else b"".join(parts)
+                data = (carry + block) if carry else block
+                # find a boundary near the end; widen backwards while the
+                # tail window is mid-record
+                window = _TAIL_WINDOW
+                cut = len(data)
+                while window < 2 * len(data):
+                    b = record_boundary(data, max(1, len(data) - window), fmt)
+                    if b < len(data):
+                        cut = b
+                        break
+                    window *= 2
+                if cut == len(data) or cut == 0:
+                    carry = data  # no internal boundary: read on
+                    continue
+                out, carry = data[:cut], data[cut:]
+            yield out
     if carry:
         yield carry
 
@@ -75,9 +80,11 @@ def iter_record_chunks(
 def iter_encoded_chunks(
     path: str, fmt: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-    """Yield (codes stream, per-read offsets) per bounded chunk."""
+    """Yield (codes stream, per-read offsets) per bounded chunk; each
+    parse is a ``feed.parse`` span with the bytes parsed."""
     enc = fastq_encode if fmt == "fastq" else fasta_encode
     for window in iter_record_chunks(path, fmt, chunk_bytes):
-        codes, offs = enc(window)
+        with span("feed.parse", len(window)):
+            codes, offs = enc(window)
         if offs.size > 1:
             yield codes, offs

@@ -38,6 +38,7 @@ from ..packed import (
     key_from_hi_lo,
 )
 from ..types import Dna
+from ..utils.profiling import span
 
 # Sentinel lanes for invalid slots (the values of kmer_tpu/ops/count.py):
 # an invalid window's key is all ones, and its length lane SENTINEL_LEN.
@@ -70,12 +71,15 @@ class CountTable:
         A boolean-mask select keeps key order.  The live rows move to the
         host as one stacked tensor, not one transfer per lane.
         """
-        live = self.counts > 0
-        rows = torch.stack([
-            self.keys[live],
-            self.length[live].to(torch.int64),
-            self.counts[live].to(torch.int64),
-        ]).cpu()
+        with span("trim.select"):
+            live = self.counts > 0
+            rows = torch.stack([
+                self.keys[live],
+                self.length[live].to(torch.int64),
+                self.counts[live].to(torch.int64),
+            ])
+        with span("trim.copy", rows.nbytes):
+            rows = rows.cpu()
         return CountTable(
             keys=rows[0],
             length=rows[1].to(torch.int32),
@@ -87,9 +91,10 @@ class CountTable:
                                 np.ndarray]:
         """(hi uint32, lo uint32, length int32, counts int32): the arrays
         of a ``kmer_tpu`` CountTable with the same slots."""
-        hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
-        return (hi, lo, self.length.cpu().numpy().astype(np.int32),
-                self.counts.cpu().numpy().astype(np.int32))
+        with span("to_numpy"):
+            hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
+            return (hi, lo, self.length.cpu().numpy().astype(np.int32),
+                    self.counts.cpu().numpy().astype(np.int32))
 
     @classmethod
     def from_numpy(cls, hi, lo, length, counts, device="cpu") -> "CountTable":

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..packed import SIGN_FLIP, PackedKmers, hi_lo_from_key, key_from_hi_lo
+from ..utils.profiling import span
 from .count import SENTINEL_KEY, SENTINEL_LEN, CountTable, count_windows
 
 
@@ -61,24 +62,28 @@ class WideCounts:
         """The live rows, in slot order, as a host table.  They move to
         the host as one stacked tensor, not one transfer per lane; a host
         table of live rows alone is not copied."""
-        live = self.counts > 0
-        if self.counts.device.type == "cpu" and bool(live.all()):
-            return dataclasses.replace(self, n_unique=self.capacity)
-        idx = torch.nonzero(live).squeeze(1)
-        rows = torch.stack([
-            self.keys[idx], self.length[idx].to(torch.int64),
-            self.counts[idx]]).cpu()
+        with span("trim.select"):
+            live = self.counts > 0
+            if self.counts.device.type == "cpu" and bool(live.all()):
+                return dataclasses.replace(self, n_unique=self.capacity)
+            idx = torch.nonzero(live).squeeze(1)
+            rows = torch.stack([
+                self.keys[idx], self.length[idx].to(torch.int64),
+                self.counts[idx]])
+        with span("trim.copy", rows.nbytes):
+            rows = rows.cpu()
         return WideCounts(keys=rows[0], length=rows[1].to(torch.int32),
                           counts=rows[2], n_unique=int(rows.shape[1]))
 
     def to_numpy(self) -> tuple[np.ndarray, ...]:
         """(hi uint32, lo uint32, length int32, counts_hi int32, counts_lo
         uint32): the lanes of a ``kmer_tpu`` WideCounts with these slots."""
-        hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
-        c = self.counts64()
-        return (hi, lo, self.length.cpu().numpy().astype(np.int32),
-                (c >> np.int64(32)).astype(np.int32),
-                (c & np.int64(0xFFFFFFFF)).astype(np.uint32))
+        with span("to_numpy"):
+            hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
+            c = self.counts64()
+            return (hi, lo, self.length.cpu().numpy().astype(np.int32),
+                    (c >> np.int64(32)).astype(np.int32),
+                    (c & np.int64(0xFFFFFFFF)).astype(np.uint32))
 
     @classmethod
     def from_numpy(cls, hi, lo, length, counts_hi, counts_lo,

@@ -47,7 +47,8 @@ from .ops.wide import (
     SpillRuns, WideCounts, fit_groups, live_rows, merge_groups, merge_runs,
     pad_wide, table_groups)
 from .utils.logging import StatsCounters, get_logger
-from .utils.profiling import Profile, phase_timer, synchronize
+from .utils import profiling
+from .utils.profiling import Profile, phase_timer, span, synchronize
 
 # single-shot ceiling in window slots (the value of kmer_tpu/pipeline.py)
 _SINGLE_SHOT_MAX = 150 * 1000 * 1000
@@ -92,15 +93,16 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
         fsize = os.path.getsize(path)
     except OSError:
         fsize = None
-    for codes, offs in iter_encoded_chunks(path, fmt, probe_bytes):
-        lens = np.diff(offs)
-        if not width:
-            width = auto_width(lens)
-        if fsize is not None:
-            wins = int(np.maximum(lens - (k - 1), 0).sum())
-            est_windows = int(wins * max(fsize / min(probe_bytes, fsize),
-                                         1.0))
-        break
+    with span("feed.probe"):
+        for codes, offs in iter_encoded_chunks(path, fmt, probe_bytes):
+            lens = np.diff(offs)
+            if not width:
+                width = auto_width(lens)
+            if fsize is not None:
+                wins = int(np.maximum(lens - (k - 1), 0).sum())
+                est_windows = int(
+                    wins * max(fsize / min(probe_bytes, fsize), 1.0))
+            break
     width_multiple = max(16, width_multiple)
     width = -(-(width or 256) // width_multiple) * width_multiple
     while width <= k - 1:
@@ -117,26 +119,34 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
             batch = min(batch, max(4096, 1 << int(need_rows).bit_length()))
 
     def gen():
+        # each chunk's packing is a feed.pack span (with the packed rows'
+        # bytes); it closes before the batches it made are yielded
         buf_w: list[np.ndarray] = []
         buf_l: list[np.ndarray] = []
         pending = 0
         for codes, offs in iter_encoded_chunks(path, fmt, cb):
-            words, lens = rows_packed(codes, offs, width, k)
-            buf_w.append(words)
-            buf_l.append(lens)
-            pending += words.shape[0]
-            if pending >= batch:
-                allw = np.concatenate(buf_w)
-                alll = np.concatenate(buf_l)
-                n_full = (pending // batch) * batch
-                for s in range(0, n_full, batch):
-                    yield allw[s: s + batch], alll[s: s + batch]
-                buf_w = [allw[n_full:]]
-                buf_l = [alll[n_full:]]
-                pending -= n_full
+            with span("feed.pack") as pack:
+                words, lens = rows_packed(codes, offs, width, k)
+                pack.nbytes = words.nbytes + lens.nbytes
+                buf_w.append(words)
+                buf_l.append(lens)
+                pending += words.shape[0]
+                ready = []
+                if pending >= batch:
+                    allw = np.concatenate(buf_w)
+                    alll = np.concatenate(buf_l)
+                    n_full = (pending // batch) * batch
+                    ready = [(allw[s: s + batch], alll[s: s + batch])
+                             for s in range(0, n_full, batch)]
+                    buf_w = [allw[n_full:]]
+                    buf_l = [alll[n_full:]]
+                    pending -= n_full
+            yield from ready
         if pending:  # zero-length-padded fixed-shape tail
-            yield from _padded_batches(np.concatenate(buf_w),
-                                       np.concatenate(buf_l), batch)
+            with span("feed.pack"):
+                tail = list(_padded_batches(np.concatenate(buf_w),
+                                            np.concatenate(buf_l), batch))
+            yield from tail
 
     return gen(), batch, width, est_windows
 
@@ -212,7 +222,9 @@ class _Feeder(threading.Thread):
     exception in the feed is queued for the consumer to raise.  The first
     ``skip`` batches (done before a resume) are read and dropped.  The
     consumer calls ``stop`` when it is done, on every path, so the thread
-    never stays blocked on a full queue."""
+    never stays blocked on a full queue.  The thread's spans (the feed's,
+    ``feed.pack``, ``feed.put``) belong to the job and span open where it
+    was built."""
 
     def __init__(self, batches: Iterable, depth: int, skip: int = 0):
         super().__init__(daemon=True)
@@ -220,6 +232,7 @@ class _Feeder(threading.Thread):
         self._batches = batches
         self._skip = skip
         self._halt = threading.Event()
+        self._ctx = profiling.context()
 
     def stop(self) -> None:
         self._halt.set()
@@ -230,15 +243,20 @@ class _Feeder(threading.Thread):
             pass
 
     def _put(self, item) -> bool:
-        while not self._halt.is_set():
-            try:
-                self.q.put(item, timeout=0.2)
-                return True
-            except queue.Full:
-                continue
-        return False
+        with span("feed.put"):
+            while not self._halt.is_set():
+                try:
+                    self.q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
 
     def run(self):
+        with profiling.adopt(self._ctx):
+            self._run()
+
+    def _run(self):
         from .native import pack2bit_rows
 
         try:
@@ -247,19 +265,29 @@ class _Feeder(threading.Thread):
                     return
                 if i < self._skip:
                     continue
-                rows = np.asarray(rows)
-                if rows.dtype != np.uint32:  # raw codes: pack here
-                    rows = pack2bit_rows(rows)
-                if not self._put((i, _combine(rows, lengths))):
+                with span("feed.pack") as pack:
+                    rows = np.asarray(rows)
+                    if rows.dtype != np.uint32:  # raw codes: pack here
+                        rows = pack2bit_rows(rows)
+                    wire = _combine(rows, lengths)
+                    pack.nbytes = wire.nbytes
+                if not self._put((i, wire)):
                     return
             self._put(None)
         except BaseException as e:  # raised again in the consumer
             self._put(e)
 
 
+def _next(feeder: _Feeder):
+    """The consumer's next item, its wait a ``queue.wait`` span."""
+    with span("queue.wait"):
+        return feeder.q.get()
+
+
 def _upload(wire: np.ndarray, device: torch.device) -> torch.Tensor:
     """A wire array to the device (uint32 travels as int32 bits)."""
-    return torch.from_numpy(wire.view(np.int32)).to(device)
+    with span("upload", wire.nbytes):
+        return torch.from_numpy(wire.view(np.int32)).to(device)
 
 
 def _record(stats: StatsCounters | None, wire: np.ndarray, k: int) -> None:
@@ -286,7 +314,7 @@ def _count_single_shot(feed, k: int, canonical: bool, batch: int,
     feeder = _Feeder(feed, depth=3)
     feeder.start()
     try:
-        while (item := feeder.q.get()) is not None:
+        while (item := _next(feeder)) is not None:
             if isinstance(item, BaseException):
                 raise item
             if (len(wires) + 1) * spb > ceiling:
@@ -452,6 +480,7 @@ class _PipelineRun:
             self._spill()
 
 
+@profiling.job_entry
 def count_batches_pipelined(
     batches: Iterable[tuple[np.ndarray, np.ndarray]],
     k: int,
@@ -504,7 +533,7 @@ def count_batches_pipelined(
     feeder = _Feeder(batches, queue_depth, skip=start)
     feeder.start()
     try:
-        item = feeder.q.get()
+        item = _next(feeder)
         if isinstance(item, BaseException):
             raise item
         if item is None:
@@ -559,7 +588,7 @@ def count_batches_pipelined(
                     synchronize(device)  # the snapshot's work is done
                     writer.submit(run.acc, done, run.cap, list(spills.runs))
                 last_ckpt_t = now
-            item = feeder.q.get()
+            item = _next(feeder)
         if writer is not None:
             with run.phase("ckpt"):
                 writer.close()
@@ -585,6 +614,7 @@ def _finish(acc: WideCounts, spills: SpillRuns,
     return merge_runs(runs, device=device)
 
 
+@profiling.job_entry
 def count_file(
     path: str,
     fmt: str,
