@@ -34,11 +34,11 @@ from ..packed import (
     SIGN_FLIP,
     KmerColumn,
     PackedKmers,
-    hi_lo_from_key,
     key_from_hi_lo,
 )
 from ..types import Dna
 from ..utils.profiling import span
+from . import landing
 
 # Sentinel lanes for invalid slots (the values of kmer_tpu/ops/count.py):
 # an invalid window's key is all ones, and its length lane SENTINEL_LEN.
@@ -68,33 +68,28 @@ class CountTable:
     def trim(self) -> "CountTable":
         """The live groups in ascending key order, as a host table.
 
-        A boolean-mask select keeps key order.  The live rows move to the
-        host as one stacked tensor, not one transfer per lane.
+        A mask select keeps key order (``landing.trim_rows``); from a card
+        the rows land through the pinned ring in one host allocation, and
+        a host table of live groups alone is not copied.
         """
-        with span("trim.select"):
-            live = self.counts > 0
-            rows = torch.stack([
-                self.keys[live],
-                self.length[live].to(torch.int64),
-                self.counts[live].to(torch.int64),
-            ])
-        with span("trim.copy", rows.nbytes):
-            rows = rows.cpu()
-        return CountTable(
-            keys=rows[0],
-            length=rows[1].to(torch.int32),
-            counts=rows[2].to(torch.int32),
-            n_unique=int(rows.shape[1]),
-        )
+        path, (keys, length, counts) = landing.trim_rows(
+            self.keys, self.length, self.counts)
+        if path == "host":
+            return dataclasses.replace(self, n_unique=self.capacity)
+        return CountTable(keys=keys, length=length, counts=counts,
+                          n_unique=int(keys.numel()))
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray,
                                 np.ndarray]:
         """(hi uint32, lo uint32, length int32, counts int32): the arrays
-        of a ``kmer_tpu`` CountTable with the same slots."""
+        of a ``kmer_tpu`` CountTable with the same slots, rows of one new
+        [4, n] buffer (``landing.split``)."""
         with span("to_numpy"):
-            hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
-            return (hi, lo, self.length.cpu().numpy().astype(np.int32),
-                    self.counts.cpu().numpy().astype(np.int32))
+            keys = landing.host_array(self.keys, np.int64)
+            return landing.split((
+                *landing.halves(keys, np.uint32),
+                landing.host_array(self.length, np.int32),
+                landing.host_array(self.counts, np.int32)))
 
     @classmethod
     def from_numpy(cls, hi, lo, length, counts, device="cpu") -> "CountTable":

@@ -29,8 +29,9 @@ import os
 import numpy as np
 import torch
 
-from ..packed import SIGN_FLIP, PackedKmers, hi_lo_from_key, key_from_hi_lo
+from ..packed import SIGN_FLIP, PackedKmers, key_from_hi_lo
 from ..utils.profiling import span
+from . import landing
 from .count import SENTINEL_KEY, SENTINEL_LEN, CountTable, count_windows
 
 
@@ -59,31 +60,31 @@ class WideCounts:
         return self.counts.cpu().numpy().astype(np.int64)
 
     def trim(self) -> "WideCounts":
-        """The live rows, in slot order, as a host table.  They move to
-        the host as one stacked tensor, not one transfer per lane; a host
-        table of live rows alone is not copied."""
-        with span("trim.select"):
-            live = self.counts > 0
-            if self.counts.device.type == "cpu" and bool(live.all()):
-                return dataclasses.replace(self, n_unique=self.capacity)
-            idx = torch.nonzero(live).squeeze(1)
-            rows = torch.stack([
-                self.keys[idx], self.length[idx].to(torch.int64),
-                self.counts[idx]])
-        with span("trim.copy", rows.nbytes):
-            rows = rows.cpu()
-        return WideCounts(keys=rows[0], length=rows[1].to(torch.int32),
-                          counts=rows[2], n_unique=int(rows.shape[1]))
+        """The live rows, in slot order, as a host table
+        (``landing.trim_rows``): live rows at the front of the slots are
+        cut as slices, and from a card they land through the pinned ring
+        in one host allocation; a host table of live rows alone is not
+        copied."""
+        path, (keys, length, counts) = landing.trim_rows(
+            self.keys, self.length, self.counts,
+            front=min(self.n_unique, self.capacity))
+        if path == "host":
+            return dataclasses.replace(self, n_unique=self.capacity)
+        return WideCounts(keys=keys, length=length, counts=counts,
+                          n_unique=int(keys.numel()))
 
     def to_numpy(self) -> tuple[np.ndarray, ...]:
         """(hi uint32, lo uint32, length int32, counts_hi int32, counts_lo
-        uint32): the lanes of a ``kmer_tpu`` WideCounts with these slots."""
+        uint32): the lanes of a ``kmer_tpu`` WideCounts with these slots,
+        rows of one new [5, n] buffer (``landing.split``)."""
         with span("to_numpy"):
-            hi, lo = hi_lo_from_key(self.keys.cpu().numpy())
-            c = self.counts64()
-            return (hi, lo, self.length.cpu().numpy().astype(np.int32),
-                    (c >> np.int64(32)).astype(np.int32),
-                    (c & np.int64(0xFFFFFFFF)).astype(np.uint32))
+            keys = landing.host_array(self.keys, np.int64)
+            counts = landing.host_array(self.counts, np.int64)
+            return landing.split((
+                *landing.halves(keys, np.uint32),
+                landing.host_array(self.length, np.int32),
+                landing.halves(counts, np.int32)[0],
+                landing.halves(counts, np.uint32)[1]))
 
     @classmethod
     def from_numpy(cls, hi, lo, length, counts_hi, counts_lo,

@@ -612,6 +612,114 @@ def test_pipelined_fold_on_cuda_equals_cpu(tmp_path):
         np.testing.assert_array_equal(got, want)
 
 
+# --- the trim to host on the card: the pinned ring, the slice and mask ----
+
+
+def _parent_trim(t):
+    """The trim before the pinned ring: a mask, the stacked int64 rows
+    copied to pageable memory."""
+    import dataclasses
+
+    live = t.counts > 0
+    idx = torch.nonzero(live).squeeze(1)
+    rows = torch.stack([t.keys[idx], t.length[idx].to(torch.int64),
+                        t.counts[idx].to(torch.int64)]).cpu()
+    return dataclasses.replace(
+        t, keys=rows[0], length=rows[1].to(torch.int32),
+        counts=rows[2].to(t.counts.dtype), n_unique=int(rows.shape[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [4096, None])
+def test_trim_through_the_ring_on_cuda_equals_cpu(monkeypatch, chunk):
+    """A folded table on the card trims by slices through the pinned ring
+    (many 4 KiB chunks, or the ring as built), and the same table with a
+    stale ``n_unique`` by the mask; both equal the CPU table's lanes, in
+    one unpinned host allocation, and the counters count each."""
+    import dataclasses
+
+    from kmer_tpu_torch.ops import landing
+    from kmer_tpu_torch.ops.wide import WideCounts, fold_windows_into_wide
+
+    dev = _cuda()
+    if chunk is not None:
+        monkeypatch.setattr(landing, "CHUNK_BYTES", chunk)
+        monkeypatch.setattr(landing, "_ring", None)
+    acc = {"cpu": WideCounts.empty(1 << 22, "cpu"),
+           "cuda": WideCounts.empty(1 << 22, dev)}
+    for step in range(3):
+        keys, valid = _fold_inputs(500 + step, 1 << 20, 21, 1 << 22)
+        for d in acc:
+            on = acc[d].keys.device
+            acc[d] = fold_windows_into_wide(acc[d], keys.to(on),
+                                            valid.to(on), 21)
+    want = acc["cpu"].trim().to_numpy()
+    rows = want[0].size
+    assert rows > (1 << 20) and acc["cuda"].n_unique == rows
+    stale = dataclasses.replace(acc["cuda"], n_unique=rows // 2)
+    for table, path in ((acc["cuda"], "slice"), (stale, "mask")):
+        landing.zero_trims()
+        got = table.trim()
+        assert landing.trims() == {
+            **dict.fromkeys(("slice", "mask", "host"), 0), path: 1,
+            "ring_bytes": 20 * rows}
+        cols = (got.keys, got.length, got.counts)
+        assert all(c.device.type == "cpu" and not c.is_pinned()
+                   for c in cols)
+        assert len({c.untyped_storage().data_ptr() for c in cols}) == 1
+        assert got.n_unique == rows
+        for g, w in zip(got.to_numpy(), want):
+            assert g.dtype == w.dtype and g.flags.c_contiguous
+            np.testing.assert_array_equal(g, w)
+    ring = landing.ring()
+    assert ring.is_pinned()
+    assert ring.shape == (landing.SLOTS, chunk or landing.CHUNK_BYTES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [[], ["--max-slots", str(1 << 22)]])
+def test_count_save_on_cuda_is_the_parent_trims_file(tmp_path, capsys,
+                                                     route):
+    """``count --save`` on the card writes, byte for byte, the file that
+    the trim before the ring gives, and the CPU's; the printed tables
+    match."""
+    from kmer_tpu_torch.cli import main
+    from kmer_tpu_torch.ops.wide import WideCounts
+    from kmer_tpu_torch.parallel.streaming import save_wide
+    from kmer_tpu_torch.pipeline import count_file
+    from kmer_tpu_torch.utils.checkpoint import save_table
+
+    _cuda()
+    rng = np.random.default_rng(9)
+    fq = str(tmp_path / "reads.fastq")
+    with open(fq, "wb") as f:
+        for i in range(4000):
+            seq = np.frombuffer(b"ACGT", np.uint8)[
+                rng.integers(0, 4, 150)].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * 150))
+    files, printed = {}, {}
+    for dev in ("cuda", "cpu"):
+        files[dev] = str(tmp_path / f"{dev}.npz")
+        assert main(["count", "--input", fq, "-k", "21", "--canonical",
+                     "--device", dev, "--save", files[dev], *route]) == 0
+        printed[dev] = capsys.readouterr().out
+    assert printed["cuda"] == printed["cpu"] and printed["cuda"].count(
+        "\n") > 1000
+    result = count_file(fq, "fastq", 21, canonical=True, device="cuda",
+                        max_capacity=int(route[1]) if route else None)
+    parent = str(tmp_path / "parent.npz")
+    meta = {"k": 21, "canonical": True}
+    if isinstance(result, WideCounts):
+        save_wide(_parent_trim(result), parent, meta)
+    else:
+        save_table(_parent_trim(result), parent, meta)
+    with open(parent, "rb") as f:
+        want = f.read()
+    for dev in ("cuda", "cpu"):
+        with open(files[dev], "rb") as f:
+            assert f.read() == want, dev
+
+
 # --- the SQL surface on the card: every result equals the CPU's ----------
 
 

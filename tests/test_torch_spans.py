@@ -162,7 +162,9 @@ def test_count_file_spans(tmp_path, case):
     assert sum(s.nbytes for s in spans if s.name == "upload") \
         == _wire_bytes(path, fmt, k, opts)
     copy = [s for s in spans if s.name == "trim.copy"]
-    assert [s.nbytes for s in copy] == [24 * lanes[0].size]
+    # the landed columns hold the lanes' bytes: 20 B a row, 16 for a
+    # CountTable
+    assert [s.nbytes for s in copy] == [sum(a.nbytes for a in lanes)]
     assert profiling.TRACED.bytes["upload"] == _wire_bytes(
         path, fmt, k, opts)
 
@@ -204,7 +206,7 @@ def test_count_batches_pipelined_spans(tmp_path):
     assert sum(s.nbytes for s in spans if s.name == "upload") == wire
     assert sum(s.nbytes for s in spans if s.name == "feed.pack") == wire
     assert [s.nbytes for s in spans if s.name == "trim.copy"] \
-        == [24 * lanes[0].size]
+        == [20 * lanes[0].size]
     # upload nests in extract, where the benchmark reads the wire's shape
     by_id = {s.id: s for s in spans}
     assert {by_id[s.parent].name for s in spans if s.name == "upload"} \
