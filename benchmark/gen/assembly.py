@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from .wgs_reads import pack_words
+
 N_CODE = 4
 LETTERS = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -109,3 +111,33 @@ def write(asm: Assembly, cfg: dict, fmt: str, path: str) -> int:
             size += f.write(tail.tobytes() + b"\n")
     return size
 
+
+
+def wire_batches(asm: Assembly, width: int, batch: int
+                 ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The chromosome in the port's packed wire layout, cut as a long
+    record is cut into rows: its ACGT bases (N bases skipped, the
+    configuration's policy) in rows of ``width`` bases that overlap by
+    k - 1, so that every window lies in one row once; fixed-shape batches
+    of (words [batch, width / 16] uint32, lengths [batch] uint16), the
+    last batch padded with rows of length 0."""
+    if asm.n_policy != "skip":
+        raise ValueError(f"unknown n_policy {asm.n_policy!r}")
+    if width % 16 or width < asm.k:
+        raise ValueError(f"rows of {width} bases: a multiple of 16 and at "
+                         f"least k = {asm.k}")
+    seq = asm.codes[asm.codes < N_CODE]
+    step = width - asm.k + 1
+    n_rows = max(1, -(-max(seq.size - asm.k + 1, 0) // step))
+    padded = np.zeros((n_rows - 1) * step + width, np.uint8)
+    padded[: seq.size] = seq
+    rows = np.lib.stride_tricks.sliding_window_view(padded, width)[::step]
+    n_batches = -(-n_rows // batch)
+    words = np.zeros((n_batches * batch, width // 16), np.uint32)
+    lens = np.zeros(n_batches * batch, np.uint16)
+    lens[:n_rows] = np.minimum(width, seq.size - np.arange(n_rows) * step)
+    for s in range(0, n_rows, 1 << 14):
+        e = min(n_rows, s + (1 << 14))
+        words[s:e] = pack_words(rows[s:e])
+    return [(words[b * batch:(b + 1) * batch], lens[b * batch:(b + 1) * batch])
+            for b in range(n_batches)]

@@ -137,3 +137,20 @@ def wire_batches(reads: Reads, width: int, batch: int
         words[s:e] = pack_words(rows)
     return [(words[b * batch:(b + 1) * batch], lens[b * batch:(b + 1) * batch])
             for b in range(n_batches)]
+
+
+def code_batches(reads: Reads, batch: int
+                 ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The sample as 2-bit codes: fixed-shape batches of (codes [batch,
+    read_len] uint8 0..3, lengths [batch] int32), every read one row, the
+    last batch padded with rows of length 0."""
+    L, n = reads.read_len, reads.n_reads
+    n_batches = max(1, -(-n // batch))
+    codes = np.zeros((n_batches * batch, L), np.uint8)
+    lens = np.zeros(n_batches * batch, np.int32)
+    lens[:n] = L
+    for s in range(0, n, CHUNK_READS):
+        e = min(n, s + CHUNK_READS)
+        codes[s:e] = reads.read_codes(s, e)
+    return [(codes[b * batch:(b + 1) * batch], lens[b * batch:(b + 1) * batch])
+            for b in range(n_batches)]

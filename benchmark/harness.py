@@ -21,15 +21,30 @@ import traceback
 
 import numpy as np
 
-from . import card, trace as trace_mod
+from . import card, gzfile, trace as trace_mod
 from .spec import Spec
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "kmer_tpu")
 SAMPLED_JOBS = 2  # jobs a run whose tables are compared row by row
+JOB_DIR = "{job_dir}"  # in a mix's option: a directory emptied every job
 
 
 def log(*parts) -> None:
     print(*parts, file=sys.stderr, flush=True)
+
+
+def bytes_written() -> int | None:
+    """Bytes this process has handed to ``write`` calls (``/proc/self/io``'s
+    ``wchar``: files, pipes and terminals alike), or None where the system
+    does not say."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
 
 
 def forbidden_modules() -> list[str]:
@@ -38,38 +53,112 @@ def forbidden_modules() -> list[str]:
     return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
 
 
-def make_job(mix: dict, gen, data, cfg: dict, work: str, device):
-    """The mix's entry as a callable ``job(stats) -> table``, with the
-    inputs it reads made in ``work``; returns (job, what was made).
+def fresh_dir(path: str) -> None:
+    """``path`` as an empty directory."""
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
 
-    ``input`` "file": ``count_file`` on the generator's file in ``format``;
-    "wire": ``count_batches_pipelined`` over the generator's packed batches
-    of ``width`` and ``batch``.  ``options`` go to the entry as they are.
+
+def with_job_dir(value, job_dir: str):
+    """``value`` (a mix's option) with each ``{job_dir}`` in its strings
+    replaced by ``job_dir``."""
+    if isinstance(value, str):
+        return value.replace(JOB_DIR, job_dir)
+    if isinstance(value, dict):
+        return {key: with_job_dir(v, job_dir) for key, v in value.items()}
+    return value
+
+
+def make_job(mix: dict, gen, data, cfg: dict, work: str, device):
+    """The mix's entry as a callable ``job(stats) -> (table, counters)``,
+    with the inputs it reads made in ``work``; returns (job, what was
+    made).  ``counters`` are the job's own readings, for its record.
+
+    ``input`` "file": ``count_file`` on the generator's file in ``format``,
+    with ``"compress": "gzip"`` gzipped at ``level`` (``gzfile``) and
+    counted as ``input.<format>.gz``; "wire": ``count_batches_pipelined``
+    over the generator's packed batches of ``width`` and ``batch``;
+    "codes": ``parallel.streaming.stream_sharded_count`` on a (1, 1) mesh
+    over the generator's code batches of ``batch`` reads, checkpointed
+    through a ``ResumableStream`` at the path ``resumable`` names, if any.
+    ``options`` go to the entry as they are, but that ``{job_dir}`` in a
+    string becomes a directory of ``work`` emptied before every job.
     """
     from kmer_tpu_torch import pipeline
 
     k, canonical = cfg["k"], cfg["canonical"]
-    options = mix.get("options", {})
+    job_dir = os.path.join(work, "job")
+    uses_job_dir = with_job_dir(mix, job_dir) != mix
+    options = with_job_dir(mix.get("options", {}), job_dir)
+    resumable = with_job_dir(mix.get("resumable"), job_dir)
+
+    def fresh():
+        if uses_job_dir:
+            fresh_dir(job_dir)
+
     if mix["input"] == "file":
         fmt = mix["format"]
         path = os.path.join(work, f"input.{fmt}")
         size = gen.write(data, cfg, fmt, path)
+        made = f"{fmt} file of {size} bytes"
+        if "compress" in mix:
+            if mix["compress"] != "gzip":
+                raise ValueError(f"unknown compression {mix['compress']!r}")
+            plain, path = path, path + ".gz"
+            t = time.perf_counter()
+            packed = gzfile.compress(plain, path, mix["level"])
+            os.remove(plain)
+            made = (f"{fmt}.gz file of {packed} bytes, {size} bytes gzipped "
+                    f"at level {mix['level']} in "
+                    f"{time.perf_counter() - t:.3f} s")
 
         def job(stats):
+            fresh()
             return pipeline.count_file(path, fmt, k, canonical=canonical,
-                                       stats=stats, device=device, **options)
+                                       stats=stats, device=device,
+                                       **options), {}
 
-        return job, f"{fmt} file of {size} bytes"
+        return job, made
     if mix["input"] == "wire":
         batches = gen.wire_batches(data, mix["width"], mix["batch"])
 
         def job(stats):
+            fresh()
             return pipeline.count_batches_pipelined(
                 batches, k, canonical=canonical, stats=stats, device=device,
-                **options)
+                **options), {}
 
         return job, (f"{len(batches)} packed batches of "
                      f"{batches[0][0].shape} words")
+    if mix["input"] == "codes":
+        from kmer_tpu_torch.parallel import streaming
+        from kmer_tpu_torch.parallel.mesh import make_mesh
+
+        batches = gen.code_batches(data, mix["batch"])
+        mesh = make_mesh((1, 1), device=device)
+        shape = list(batches[0][0].shape)
+
+        def job(stats):
+            fresh()
+            ckpt = (streaming.ResumableStream(resumable) if resumable
+                    else None)
+            acc, overflow = streaming.stream_sharded_count(
+                batches, k, mesh, canonical=canonical, resumable=ckpt,
+                stats=stats, **options)
+            if overflow:
+                raise RuntimeError(f"the stream overflowed: {overflow} keys "
+                                   "clipped")
+            if stats.batches != len(batches):  # a resume skips batches
+                raise RuntimeError(f"the stream folded {stats.batches} of "
+                                   f"{len(batches)} batches")
+            counters = {"codes_shape": shape}
+            if ckpt is not None:
+                counters.update(n_checkpoints=ckpt.n_checkpoints,
+                                ckpt_wait_s=ckpt.ckpt_wait_s)
+            return acc, counters
+
+        return job, (f"{len(batches)} code batches of {tuple(shape)} "
+                     f"bases")
     raise ValueError(f"unknown mix input {mix['input']!r}")
 
 
@@ -167,7 +256,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         log(f"inputs: {made}; {windows} k-mer windows a job; seed {seed}")
 
         t_warm = time.perf_counter()
-        job(StatsCounters()).trim().to_numpy()  # ends on the host: synced
+        job(StatsCounters())[0].trim().to_numpy()  # ends on the host
         log(f"warm-up job: {time.perf_counter() - t_warm:.6f} s")
         launched = dict(launches())
         if on_card:
@@ -182,6 +271,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
             if on_card:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts, record_shapes=True)
+        written = bytes_written()
         with prof:
             t_start = time.perf_counter()  # the profiler, if any, is on
             with rf(trace_mod.WINDOW):
@@ -190,7 +280,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
                     tj = time.perf_counter()
                     try:
                         with rf("bench.job"):
-                            table = job(stats)
+                            table, counters = job(stats)
                             tt = time.perf_counter()
                             with rf("bench.trim"):
                                 lanes = table.trim().to_numpy()
@@ -203,12 +293,15 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
                     jobs.append({"start": tj, "end": te, "trim_s": te - tt,
                                  "batches": stats.batches,
                                  "grows": stats.grows, "spills": stats.spills,
-                                 "rows": int(lanes[0].size)})
+                                 "rows": int(lanes[0].size), **counters})
                     sample.offer(len(jobs) - 1, lanes)
                     del lanes
                     if te - t_start >= seconds:
                         break
         setup_s = t_start - t0
+        if written is not None:
+            log(f"bytes written: {written} in set-up, "
+                f"{bytes_written() - written} in the window")
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         found = forbidden_modules()
         if found:
@@ -219,7 +312,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
             + ", ".join(f"{j['end'] - j['start']:.6f}" for j in jobs))
         log("counters a job: " + ", ".join(
             f"{key} {[j[key] for j in jobs]}"
-            for key in ("batches", "grows", "spills", "rows")))
+            for key in dict.fromkeys(key for j in jobs for key in j)
+            if key not in ("start", "end", "trim_s")))
         log("trim a job: " + ", ".join(f"{j['trim_s']:.6f}" for j in jobs))
         log("kernel launches in the window: " + ", ".join(
             f"{key} {now[key] - launched.get(key, 0)}" for key in now))

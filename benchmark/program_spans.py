@@ -22,8 +22,8 @@ import statistics
 from benchmark.trace import _merge
 
 # bytes an element of each copy's tensor: the wire is int32 words (as
-# ``Run.batch_shapes`` reads it), the trim's stacked rows int64 lanes
-COPY_ITEMSIZE = {"upload": 4, "trim.copy": 8}
+# ``Run.batch_shapes`` reads it)
+COPY_ITEMSIZE = {"upload": 4}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,22 +8,19 @@ import pytest
 import torch
 
 from benchmark.harness import run_cell
-from benchmark.spec import Spec
 
 import tiny
 
-CELLS = [w["name"] for w in Spec().data["workloads"]]
-
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", tiny.cells())
 def test_cell_on_the_card(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    spec = Spec()
+    spec = tiny.spec()
     result = run_cell(workload, 2 ** 33 + 3, 0.5, True, "cuda",
-                      time.perf_counter(), config=tiny.config(workload),
-                      mix=tiny.MIX[workload])
+                      time.perf_counter(), spec=spec,
+                      config=tiny.config(workload), mix=tiny.mix(workload))
     assert result["correct"] is True
     assert result["device"]["platform"] == "gpu"
     assert result["device"]["busy_s"] > 0

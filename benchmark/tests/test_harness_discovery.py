@@ -30,7 +30,7 @@ def test_added_files_are_found_by_name(tmp_path):
         bench = json.load(f)
     cfg = {**json.loads((tmp_path / "benchmark" / "configs"
                          / "scer-wgs-k21.json").read_text()),
-           **tiny.CONFIG["scer-wgs-k21"], "name": "dummy-reads", "k": 17}
+           **tiny.sizes("scer-wgs-k21"), "name": "dummy-reads", "k": 17}
     (tmp_path / "benchmark" / "configs" / "dummy-reads.json").write_text(
         json.dumps(cfg))
     (tmp_path / "benchmark" / "mixes" / "dummy-wire.json").write_text(

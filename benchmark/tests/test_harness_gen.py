@@ -17,7 +17,7 @@ SEEDS = (7, 2 ** 33 + 11)
 def _cfg(name):
     spec = Spec()
     w = next(w for w in spec.data["workloads"] if w["config"] == name)
-    return {**spec.config(w), **tiny.CONFIG[name]}
+    return {**spec.config(w), **tiny.sizes(name)}
 
 
 @pytest.mark.parametrize("seed", SEEDS)

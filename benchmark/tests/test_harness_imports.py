@@ -7,7 +7,11 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from benchmark.harness import FORBIDDEN, forbidden_modules
+
+import tiny
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -17,17 +21,18 @@ import sys, time, json
 sys.path.insert(0, "benchmark/tests")
 import tiny
 from benchmark.harness import run_cell, forbidden_modules
-w = "scer-wgs-k21.packed"
-r = run_cell(w, 5, 0.1, True, "cpu", time.perf_counter(),
-             config=tiny.config(w), mix=tiny.MIX[w])
+w = sys.argv[1]
+r = run_cell(w, 5, 0.1, True, "cpu", time.perf_counter(), spec=tiny.spec(),
+             config=tiny.config(w), mix=tiny.mix(w))
 assert r["correct"], r
 assert "kmer_tpu_torch" in sys.modules
 print(json.dumps(forbidden_modules()))
 """
 
 
-def test_a_run_loads_no_jax_nor_the_jax_package():
-    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+@pytest.mark.parametrize("workload", tiny.cells())
+def test_a_run_loads_no_jax_nor_the_jax_package(workload):
+    out = subprocess.run([sys.executable, "-c", SCRIPT, workload], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -18,12 +18,12 @@ CELLS = [w["name"] for w in Spec().data["workloads"]]
 
 
 @pytest.mark.parametrize("traced", [False, True])
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", tiny.cells())
 def test_cell_runs_end_to_end_on_the_cpu(workload, traced):
-    spec = Spec()
+    spec = tiny.spec()
     result = run_cell(workload, 2 ** 33 + 17, 0.2, traced, "cpu",
-                      time.perf_counter(), config=tiny.config(workload),
-                      mix=tiny.MIX[workload])
+                      time.perf_counter(), spec=spec,
+                      config=tiny.config(workload), mix=tiny.mix(workload))
     assert result["correct"] is True
     assert result["failed"] == 0 and result["attempted"] >= 1
     assert list(result)[-1] == "checks"

@@ -28,6 +28,9 @@ class DeviceOp:
     name: str
     cat: str
     correlation: int | None
+    # the event's own arguments (a copy's ``bytes``, ...)
+    args: dict = dataclasses.field(default_factory=dict, compare=False,
+                                   repr=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +65,8 @@ class Trace:
             args = e.get("args") or {}
             if cat in DEVICE_CATS:
                 self.device.append(DeviceOp(
-                    ts, end, e.get("name", ""), cat, args.get("correlation")))
+                    ts, end, e.get("name", ""), cat, args.get("correlation"),
+                    args))
             elif cat == "user_annotation":
                 self.ranges.append(Range(ts, end, e.get("name", ""),
                                          e.get("tid")))
