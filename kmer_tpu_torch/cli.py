@@ -4,7 +4,7 @@
   python -m kmer_tpu_torch count   --input data.csv|reads.fastq|ref.fasta -k 8
                                    [--canonical] [--top 10]
                                    [--from-dna-column] [--trace DIR]
-                                   [--device cuda]
+                                   [--n-policy skip|break] [--device cuda]
   python -m kmer_tpu_torch extract --dna ACGTACGT -k 3
   python -m kmer_tpu_torch query   --input data.csv [--index]
                                    --eq acga | --prefix ac | --pattern angry
@@ -29,7 +29,9 @@ raises without a card).  ``serve`` answers one JSON line a command (see
 group on stdout, by descending count and then ascending key, and a
 ``# N distinct, T total`` line on stderr; on a CSV it groups the kmer
 column, or with ``--from-dna-column`` counts the k-mers of the dna
-column.  ``query`` prints the matching rows as CSV and ``# N rows`` on
+column; on FASTA/FASTQ ``--n-policy break`` (``kmer_tpu`` has no such
+flag) ends a contig at each non-ACGT run instead of joining its flanks.
+``query`` prints the matching rows as CSV and ``# N rows`` on
 stderr.  ``bench`` prints the one-line result JSON as the last line of
 stdout.  ``distcount`` (one process per rank) prints one JSON line
 per rank (``kmer_tpu``'s keys, and a ``detail`` with the rank's rate,
@@ -107,6 +109,7 @@ def _cmd_count(args) -> int:
             stats=stats,
             ckpt_path=args.ckpt,
             device=args.device,
+            n_policy=args.n_policy,
         )
     elif args.from_dna_column:
         table = KmerTable.from_csv(args.input, device=args.device)
@@ -635,6 +638,12 @@ def main(argv=None) -> int:
         "--spill-dir", default=None, metavar="DIR",
         help="directory for spilled runs (default: host memory; takes "
         "the streaming fold)",
+    )
+    c.add_argument(
+        "--n-policy", choices=["skip", "break"], default="skip",
+        help="FASTA/FASTQ: what a non-ACGT base does. skip (default, "
+        "kmer_tpu's) drops it and joins its flanks; break ends the contig "
+        "there, so no window spans it (as jellyfish, meryl and KMC count)",
     )
     c.add_argument(
         "--from-dna-column", action="store_true",

@@ -13,7 +13,8 @@ from typing import Iterator
 
 import numpy as np
 
-from ..native import fasta_encode, fastq_encode, record_boundary
+from ..native import (N_POLICIES, contigs_encode, fasta_encode, fastq_encode,
+                      record_boundary)
 from ..utils.profiling import span
 
 DEFAULT_CHUNK_BYTES = 256 << 20
@@ -78,13 +79,29 @@ def iter_record_chunks(
 
 
 def iter_encoded_chunks(
-    path: str, fmt: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES
+    path: str, fmt: str, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+    n_policy: str = "skip", stats=None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Yield (codes stream, per-read offsets) per bounded chunk; each
-    parse is a ``feed.parse`` span with the bytes parsed."""
+    parse is a ``feed.parse`` span with the bytes parsed.
+
+    ``n_policy`` "skip" drops non-ACGT bases and joins their flanks;
+    "break" ends a contig at each run of them, so each offset pair is a
+    contig (``native.contigs_encode``), and adds the parse's ``breaks``
+    and ``break_bases`` into ``stats`` (a ``StatsCounters``), if given.
+    Chunks are cut at record boundaries, so a contig or a run never
+    straddles two of them."""
+    if n_policy not in N_POLICIES:
+        raise ValueError(f"n_policy {n_policy!r} is not one of {N_POLICIES}")
     enc = fastq_encode if fmt == "fastq" else fasta_encode
     for window in iter_record_chunks(path, fmt, chunk_bytes):
         with span("feed.parse", len(window)):
-            codes, offs = enc(window)
+            if n_policy == "skip":
+                codes, offs = enc(window)
+            else:
+                codes, offs, breaks, gaps = contigs_encode(window, fmt)
+                if stats is not None:
+                    stats.breaks += breaks
+                    stats.break_bases += gaps
         if offs.size > 1:
             yield codes, offs

@@ -11,9 +11,10 @@ load a half-written library.
   PyTorch headers are included, so a build takes seconds.  A source
   rebuilds when it or any header of ``csrc/`` (``*.cuh``) is newer than
   its library.
-* The host parser (``native/kmer_native.c``): ``cc``.  The port builds
-  its own copy and leaves ``kmer_tpu``'s ``native/libkmer_native.so``
-  alone.
+* The host parser (``csrc/host_parse.c``, which includes
+  ``native/kmer_native.c`` whole and adds the parsers that break windows
+  at non-ACGT runs): ``cc``, into ``libhost_parse.so``.  ``kmer_tpu``'s
+  ``native/libkmer_native.so`` is left alone.
 """
 
 from __future__ import annotations
@@ -118,5 +119,7 @@ class KernelLibrary:
 
 
 def native_library() -> str:
-    """Build the host parser library from ``native/kmer_native.c``."""
-    return build_library(NATIVE_SRC, "libkmer_native.so", ["cc", *CC_FLAGS])
+    """Build the host parser library from ``csrc/host_parse.c`` (and the
+    ``native/kmer_native.c`` it includes)."""
+    return build_library(os.path.join(CSRC_DIR, "host_parse.c"),
+                         "libhost_parse.so", ["cc", *CC_FLAGS], (NATIVE_SRC,))

@@ -1,10 +1,13 @@
-"""Host parser bindings (ctypes over ``native/kmer_native.c``) and the
-device unpack of the packed wire.
+"""Host parser bindings (ctypes over ``csrc/host_parse.c``, which holds
+``native/kmer_native.c``) and the device unpack of the packed wire.
 
 The counterpart of ``kmer_tpu/native.py``.  The C library is built from
 the repository's source into the port's build directory
 (``kernels/build.py``); there is no numpy fallback, so a failed build
-raises.
+raises.  ``N_POLICIES`` names what a parse does with a non-ACGT sequence
+byte: ``"skip"`` drops it and joins its flanks (``kmer_tpu``'s parse and
+the contract's default), ``"break"`` ends the contig there, so that no
+window crosses it (``contigs_encode``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from .errors import InvalidDnaSequenceError, InvalidKmerLengthError
 from .kernels.build import native_library
 
 _lib = None
+
+N_POLICIES = ("skip", "break")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_longlong)
@@ -37,6 +42,10 @@ def _load():
     for fn in (lib.kn_fasta_encode_mt, lib.kn_fastq_encode_mt):
         fn.restype = ctypes.c_longlong
         fn.argtypes = parse_argtypes
+    lib.kb_encode_break_mt.restype = ctypes.c_longlong
+    lib.kb_encode_break_mt.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong, _u8p, _i64p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, _i64p]
     for fn in (lib.kn_fasta_boundary_at, lib.kn_fastq_boundary_at):
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong]
@@ -94,6 +103,36 @@ def fastq_encode(data: bytes, skip_invalid: bool = True):
     Strict 4-line records; quality lines are skipped by sequence length.
     """
     return _encode(_load().kn_fastq_encode_mt, data, "fastq", skip_invalid)
+
+
+def contigs_encode(data: bytes, fmt: str
+                   ) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """FASTA or FASTQ bytes -> (code stream, per-contig offsets, breaks,
+    gap bytes), windows broken at every maximal run of non-ACGT sequence
+    bytes: each contig (maximal ACGT run of a record) is one read.
+    ``breaks`` counts the contigs begun at a run inside a record, ``gap
+    bytes`` the non-ACGT sequence bytes.  One pass of the parse, on the
+    skipping parsers' record-aligned threads."""
+    n = len(data)
+    lib = _load()
+    fastq = 1 if fmt == "fastq" else 0
+    max_reads = min(1 << 24, n // (8 if fastq else 3) + 16)
+    counts = np.zeros(3, dtype=np.int64)
+    codes = np.empty(n, dtype=np.uint8)
+    while True:
+        offsets = np.empty(max_reads + 1, dtype=np.int64)
+        r = lib.kb_encode_break_mt(
+            data, n, codes.ctypes.data_as(_u8p),
+            offsets.ctypes.data_as(_i64p), max_reads, _parse_threads(),
+            fastq, counts.ctypes.data_as(_i64p))
+        if r != -1 - n or int(counts[2]) <= max_reads:
+            break
+        max_reads = int(counts[2])  # more contigs than the first guess
+    if r < 0:
+        raise InvalidDnaSequenceError()
+    total = int(offsets[r])
+    return (codes[:total].copy(), offsets[: r + 1].copy(), int(counts[0]),
+            int(counts[1]))
 
 
 def record_boundary(data: bytes, pos: int, fmt: str) -> int:

@@ -72,6 +72,8 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
                     width: int | None, chunk_bytes: int | None = None,
                     width_multiple: int = 16,
                     target_windows: int = 1 << 26,
+                    n_policy: str = "skip",
+                    stats: StatsCounters | None = None,
                     ) -> tuple[Iterator, int, int, int | None]:
     """Fixed-shape feed for a FASTA/FASTQ file with auto batch/width.
 
@@ -82,7 +84,10 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
     consumer, whose word axis must split evenly).  ``est_windows``
     extrapolates the first chunk's window count to the whole file (None
     when no record was probed or the file's size cannot be read): the
-    routing signal.
+    routing signal.  ``n_policy`` "break" makes every contig (maximal
+    ACGT run) a read of its own (``io.ingest.iter_encoded_chunks``), so
+    the rows, the width sample and the estimate go contig by contig; the
+    iterator adds the parse's break counters into ``stats``.
     """
     from .io.ingest import DEFAULT_CHUNK_BYTES, iter_encoded_chunks
 
@@ -94,7 +99,8 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
     except OSError:
         fsize = None
     with span("feed.probe"):
-        for codes, offs in iter_encoded_chunks(path, fmt, probe_bytes):
+        for codes, offs in iter_encoded_chunks(path, fmt, probe_bytes,
+                                               n_policy):
             lens = np.diff(offs)
             if not width:
                 width = auto_width(lens)
@@ -124,7 +130,8 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
         buf_w: list[np.ndarray] = []
         buf_l: list[np.ndarray] = []
         pending = 0
-        for codes, offs in iter_encoded_chunks(path, fmt, cb):
+        for codes, offs in iter_encoded_chunks(path, fmt, cb, n_policy,
+                                               stats):
             with span("feed.pack") as pack:
                 words, lens = rows_packed(codes, offs, width, k)
                 pack.nbytes = words.nbytes + lens.nbytes
@@ -365,13 +372,15 @@ def save_pipeline_ckpt(acc: WideCounts, path: str, batches_done: int,
                        capacity: int, spill_runs: list[str],
                        k: int, canonical: bool,
                        batch: int | None = None,
-                       width: int | None = None) -> None:
+                       width: int | None = None,
+                       n_policy: str = "skip") -> None:
     """Confirmed-point checkpoint in ``save_wide``'s layout, uncompressed
     (zlib takes seconds for every 10M rows, and a checkpoint is written
     while the count waits or runs beside it; either package loads it).
-    k, canonical, batch and width are recorded so that a resume with
-    other flags fails instead of folding mismatched windows or skipping
-    the wrong reads.  Logs one line a checkpoint written."""
+    k, canonical, batch, width and the feed's ``n_policy`` are recorded
+    so that a resume with other flags fails instead of folding mismatched
+    windows or skipping the wrong reads.  Logs one line a checkpoint
+    written."""
     from .parallel.streaming import save_wide
 
     save_wide(acc, path, {
@@ -382,6 +391,7 @@ def save_pipeline_ckpt(acc: WideCounts, path: str, batches_done: int,
         "canonical": canonical,
         "batch": batch,
         "width": width,
+        "n_policy": n_policy,
     }, compress=False)
     get_logger().info("pipeline: checkpoint at batch %d written to %s",
                       batches_done, path)
@@ -497,6 +507,7 @@ def count_batches_pipelined(
     *,
     device: str | torch.device,
     profile: Profile | None = None,
+    n_policy: str = "skip",
 ) -> WideCounts:
     """Exact 64-bit GROUP BY over fixed-shape batches on ``device``.
 
@@ -508,7 +519,10 @@ def count_batches_pipelined(
     rounded down to a power of two (None: unbounded); past it, live slots
     spill to host or ``spill_dir`` sorted runs, and the result is their
     exact K-way merge.  With ``profile``, the device phases of every
-    batch are timed (with a synchronize around each).
+    batch are timed (with a synchronize around each).  ``n_policy`` is
+    the one the batches were parsed under: a checkpoint records it, and
+    a resume under another raises (a checkpoint without it was written
+    under "skip", the only policy ``kmer_tpu`` has).
     """
     device = resolve_device(device)
     cap = 1 << max(3, int(capacity - 1).bit_length())
@@ -529,6 +543,11 @@ def count_batches_pipelined(
         start = ckpt.batches_done
         spills.runs = list(ckpt.spill_runs)
         cap = max(cap, 1 << max(3, int(ckpt.capacity - 1).bit_length()))
+        # a resume with other flags would fold mismatched windows (or
+        # skip the wrong number of reads) on top of the accumulator; the
+        # batch shape is checked at the first batch
+        _check_resume(ckpt, k=k, canonical=bool(canonical),
+                      n_policy=n_policy)
 
     feeder = _Feeder(batches, queue_depth, skip=start)
     feeder.start()
@@ -543,15 +562,7 @@ def count_batches_pipelined(
         B, nwp1 = item[1].shape
         width = (nwp1 - 1) * 16
         if resumed:
-            # a resume with other flags would fold mismatched windows (or
-            # skip the wrong number of reads) on top of the accumulator
-            for name, want in (("k", k), ("canonical", bool(canonical)),
-                               ("batch", B), ("width", width)):
-                have = ckpt.meta.get(name)
-                if have is not None and have != want:
-                    raise ValueError(
-                        f"checkpoint {ckpt.path} was written with "
-                        f"{name}={have}; this resume uses {name}={want}")
+            _check_resume(ckpt, batch=B, width=width)
         run = _PipelineRun(k, canonical, width, cap, max_cap, spills,
                            spill_threshold, grow_threshold, stats, profile,
                            device)
@@ -563,7 +574,8 @@ def count_batches_pipelined(
 
             def _write(acc, done, cap_now, runs_now):
                 save_pipeline_ckpt(acc, ckpt.path, done, cap_now, runs_now,
-                                   k, canonical, batch=B, width=width)
+                                   k, canonical, batch=B, width=width,
+                                   n_policy=n_policy)
                 ckpt.batches_done = done
 
             writer = AsyncCheckpointer(_write)
@@ -595,12 +607,26 @@ def count_batches_pipelined(
                 if done > ckpt.batches_done or ckpt.acc is None:
                     save_pipeline_ckpt(run.acc, ckpt.path, done, run.cap,
                                        list(spills.runs), k, canonical,
-                                       batch=B, width=width)
+                                       batch=B, width=width,
+                                       n_policy=n_policy)
                     ckpt.batches_done = done
     finally:
         feeder.stop()
     with run.phase("merge_runs"):
         return _finish(run.acc, spills, device)
+
+
+def _check_resume(ckpt: PipelineCheckpoint, **want) -> None:
+    """Raises where the checkpoint records another value of a flag than
+    ``want`` gives; a checkpoint without ``n_policy`` was written under
+    "skip", the only policy ``kmer_tpu`` has."""
+    meta = {"n_policy": "skip", **ckpt.meta}
+    for name, value in want.items():
+        have = meta.get(name)
+        if have is not None and have != value:
+            raise ValueError(
+                f"checkpoint {ckpt.path} was written with {name}={have}; "
+                f"this resume uses {name}={value}")
 
 
 def _finish(acc: WideCounts, spills: SpillRuns,
@@ -633,6 +659,7 @@ def count_file(
     *,
     device: str | torch.device,
     profile: Profile | None = None,
+    n_policy: str = "skip",
 ) -> CountTable | WideCounts:
     """Count a FASTA/FASTQ file end to end on ``device``.
 
@@ -642,12 +669,22 @@ def count_file(
     estimate; a checkpoint, a spill directory or a device budget always
     takes the fold, and so does a file whose estimate undershot (found
     mid-stream).  ``profile`` times the fold's device phases.
+
+    ``n_policy`` says what a non-ACGT sequence byte (N, n, an IUPAC
+    letter, anything the parser does not encode) does: "skip" (the
+    default, ``kmer_tpu``'s) drops it and joins its flanks; "break" ends
+    the contig at each maximal run of them, so no window contains or
+    spans one and each contig's windows are counted as they would be
+    alone, as jellyfish, meryl and KMC count.  ``stats.breaks`` and
+    ``stats.break_bases`` count the contigs begun at a run and the bytes
+    broken at.
     """
     device = resolve_device(device)
     if not 1 <= k <= MAX_K:
         raise InvalidKmerLengthError()
     feed, batch, width, est_windows = file_batch_feed(
-        path, fmt, k, batch, width, chunk_bytes)
+        path, fmt, k, batch, width, chunk_bytes, n_policy=n_policy,
+        stats=stats)
     if single_shot is None:
         single_shot = (
             est_windows is not None
@@ -666,7 +703,8 @@ def count_file(
                 "single-shot routing estimate undershot; falling back "
                 "to the streaming fold")
             feed, batch, width, est_windows = file_batch_feed(
-                path, fmt, k, batch, width, chunk_bytes)
+                path, fmt, k, batch, width, chunk_bytes, n_policy=n_policy,
+                stats=stats)
     try:
         # bases <= file bytes (FASTA ~1x, FASTQ ~0.45x); windows <= bases
         est = os.path.getsize(path) // (2 if fmt == "fastq" else 1)
@@ -680,4 +718,5 @@ def count_file(
         feed, k, canonical=canonical, capacity=capacity,
         max_capacity=max_capacity, spill_dir=spill_dir, stats=stats,
         ckpt=ckpt, ckpt_every_s=ckpt_every_s, device=device, profile=profile,
+        n_policy=n_policy,
     )

@@ -35,6 +35,8 @@ class StatsCounters:
     batches: int = 0
     grows: int = 0  # streaming fold: capacity growth events
     spills: int = 0  # streaming fold: sorted runs spilled
+    breaks: int = 0  # n_policy "break": contigs begun at a non-ACGT run
+    break_bases: int = 0  # n_policy "break": non-ACGT bytes broken at
     # sharded stream: live groups over slots sent by the partition merge
     merge_efficiency: float | None = None
     started_at: float = dataclasses.field(default_factory=time.time)
