@@ -78,18 +78,23 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
     """Fixed-shape feed for a FASTA/FASTQ file with auto batch/width.
 
     Returns (iterator of (words [B, W/16] uint32, lengths [B] uint16),
-    batch, width, est_windows).  Width is sampled from the first ingest
-    chunk when not given; longer reads split exactly, shorter ones pad.
+    batch, width, est_windows).  Width is sampled from the probe's window
+    (``io.ingest.probe_sample``: at most the file's first
+    ``min(chunk_bytes, 16 MiB)``, cut at a record boundary where it holds
+    one) when not given; longer reads split exactly, shorter ones pad.
     The width rounds up to ``width_multiple`` (16 * seq for a sharded
     consumer, whose word axis must split evenly).  ``est_windows``
-    extrapolates the first chunk's window count to the whole file (None
-    when no record was probed or the file's size cannot be read): the
-    routing signal.  ``n_policy`` "break" makes every contig (maximal
-    ACGT run) a read of its own (``io.ingest.iter_encoded_chunks``), so
-    the rows, the width sample and the estimate go contig by contig; the
-    iterator adds the parse's break counters into ``stats``.
+    scales the k-mer windows of the probe's window to the whole file by
+    the bytes on disk that window stands for (None when no record was
+    probed or the file's size cannot be read): the routing signal.
+    ``n_policy`` "break" makes every contig (maximal ACGT run) a read of
+    its own (``io.ingest.iter_encoded_chunks``), so the rows, the width
+    sample and the estimate go contig by contig; the iterator adds the
+    parse's break counters into ``stats``, and a probe whose sample ended
+    inside a record counts one ``stats.probe_cuts``.
     """
-    from .io.ingest import DEFAULT_CHUNK_BYTES, iter_encoded_chunks
+    from .io.ingest import (DEFAULT_CHUNK_BYTES, encode_window,
+                            iter_encoded_chunks, probe_sample)
 
     cb = chunk_bytes or DEFAULT_CHUNK_BYTES
     est_windows = None
@@ -99,16 +104,18 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
     except OSError:
         fsize = None
     with span("feed.probe"):
-        for codes, offs in iter_encoded_chunks(path, fmt, probe_bytes,
-                                               n_policy):
+        window, disk_bytes, cut = probe_sample(path, fmt, probe_bytes)
+        codes, offs = encode_window(window, fmt, n_policy)
+        if offs.size > 1:
             lens = np.diff(offs)
             if not width:
                 width = auto_width(lens)
             if fsize is not None:
                 wins = int(np.maximum(lens - (k - 1), 0).sum())
                 est_windows = int(
-                    wins * max(fsize / min(probe_bytes, fsize), 1.0))
-            break
+                    wins * max(fsize / max(disk_bytes, 1), 1.0))
+        if cut and stats is not None:
+            stats.probe_cuts += 1
     width_multiple = max(16, width_multiple)
     width = -(-(width or 256) // width_multiple) * width_multiple
     while width <= k - 1:
@@ -699,6 +706,8 @@ def count_file(
         except _SingleShotOverflow:
             # stats batches recorded before the abort are counted again
             # by the streaming rerun (metrics only; counts stay exact)
+            if stats is not None:
+                stats.reroutes += 1
             get_logger().info(
                 "single-shot routing estimate undershot; falling back "
                 "to the streaming fold")

@@ -18,6 +18,7 @@ from kmer_tpu_torch.ops.count import CountTable
 from kmer_tpu_torch.ops.wide import WideCounts
 from kmer_tpu_torch.pipeline import (
     PipelineCheckpoint, count_batches_pipelined, count_file, file_batch_feed)
+from kmer_tpu_torch.utils.logging import StatsCounters
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LUT = "acgt"
@@ -145,8 +146,6 @@ def test_spill_exact(tmp_path, to_dir):
     cap = 1 << int(per_batch).bit_length()  # one batch fits
     assert cap < len(oracle)  # the union does not: spills must happen
     sd = str(tmp_path / "spills") if to_dir else None
-    from kmer_tpu_torch.utils.logging import StatsCounters
-
     from kmer_tpu_torch.utils.profiling import Profile
 
     stats, profile = StatsCounters(), Profile()
@@ -322,8 +321,10 @@ def test_undershot_estimate_falls_back_to_the_fold(tmp_path, monkeypatch):
     kw = dict(canonical=True, batch=16, width=160)
     _, _, _, est = file_batch_feed(path, "fastq", 21, 16, 160)
     monkeypatch.setattr(pipeline, "_SINGLE_SHOT_MAX", int(est * 1.1) + 1)
-    got = count_file(path, "fastq", 21, device="cpu", **kw)
+    stats = StatsCounters()
+    got = count_file(path, "fastq", 21, device="cpu", stats=stats, **kw)
     assert isinstance(got, WideCounts)
+    assert (stats.reroutes, stats.probe_cuts) == (1, 0)
     _assert_same(got, jp.count_file(path, "fastq", 21, **kw))
 
 
