@@ -60,10 +60,10 @@ Phases, each of which must pass or the script exits nonzero:
 8. the streaming fold of ``count_file``, each case with the wire-key and
    segment-count kernels' counts set to 0 before it and required to
    rise: (a) a sequencing run, 5M x
-   150 bp reads at 15x over a 50 Mbp genome (a 1.57 GB FASTQ), routed
-   automatically to the fold, growing from 2^24 slots, exact against an
-   oracle built from the genome; (b) phase 4's file through the fold
-   (~130M live rows, 2^28 slots), equal to phase 4's table; (c) phase 5's
+   150 bp reads at 15x over a 50 Mbp genome (a 1.57 GB FASTQ), growing
+   from 2^24 slots, exact against an oracle built from the genome; (b)
+   phase 4's file again (~130M live rows, 2^28 slots), equal to phase
+   4's table; (c) phase 5's
    file under a 2^19-slot budget with spills to a directory, and a
    checkpointed half run resumed to the end, both equal to phase 5's
    table.  Prints per-batch count, compaction and merge times and the
@@ -177,9 +177,9 @@ Phases, each of which must pass or the script exits nonzero:
    segment counts alone, three primitive rates), ``count_phases``
    (``count_file`` on the 313 MB FASTQ of ``runs.ingest.write_fastq(...,
    1_000_000, seed=7)``: uploads pageable and pinned, an upload during a
-   sort, the feed, upload and computes on resident batches, both routes,
-   auto, the trims; every route 4,999,967 groups and 130,000,000
-   k-mers), ``read_stream`` (``count_read_stream`` split up, and a
+   sort, the feed, upload and the fold's compute on resident batches,
+   ``count_file`` warm, the trim; every table 4,999,967 groups and
+   130,000,000 k-mers), ``read_stream`` (``count_read_stream`` split up, and a
    pipelined fold equal to it), ``fold_step`` (the sustained step's parts
    and the merge cadence, equal to the per-batch fold; the extraction
    from the wire, by ``codes_keys`` and by its plain version, the last
@@ -301,10 +301,11 @@ def check_table(table, keys: np.ndarray, k: int, what: str) -> None:
     from kmer_tpu_torch.packed import key_from_hi_lo
 
     want, want_counts = np.unique(keys, return_counts=True)
-    hi, lo, length, counts = table.trim().to_numpy()
+    t = table.trim()
+    hi, lo, length, _, _ = t.to_numpy()
     got = key_from_hi_lo(hi, lo).view(np.uint64)
     check(np.array_equal(got, want), f"{what}: keys equal the oracle's")
-    check(np.array_equal(counts, want_counts), f"{what}: counts equal")
+    check(np.array_equal(t.counts64(), want_counts), f"{what}: counts equal")
     check(bool((length == k).all()), f"{what}: every length is k")
     check(table.distinct() == want.size, f"{what}: n_unique")
 
@@ -396,8 +397,8 @@ def read_launches(what: str, want: dict | None = None) -> dict:
     return check_launches(what, read(), want)
 
 
-# the kernel's timed shapes: (slots, sentinel slots) of the single-shot
-# count (2 batches x 524,288 rows x 140 slots) and of one fold batch
+# the kernel's timed shapes: (slots, sentinel slots) of phase 4's file in
+# one sort (2 batches x 524,288 rows x 140 slots) and of one fold batch
 TIMED_SHAPES = {"main path": (2 * 524288 * 140, 2 * 524288 * 16),
                 "fold batch": (524288 * 140, 524288 * 16)}
 ABOVE_2_30 = (1 << 30) + 12345  # slots of the closed-form case
@@ -1291,7 +1292,7 @@ def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
         PipelineCheckpoint, count_batches_pipelined, file_batch_feed)
 
     launches = {}
-    # (a) a sequencing run, automatic routing
+    # (a) a sequencing run
     path = os.path.join(tmp, "run.fastq")
     t0 = time.perf_counter()
     genome, starts = write_genome_run(path)
@@ -1316,10 +1317,9 @@ def fold_phase(dev, tmp: str, main_fastq: str, main_table, cov_fastq: str,
     run = (path, keys, counts)  # phase 11 counts this run again
     del table, genome, starts
 
-    # (b) state at size: phase 4's file through the fold
+    # (b) state at size: phase 4's file again, its phases timed
     windows = MAIN_READS * (READ_LEN - K + 1)
-    table, stats, launches["8b"] = fold_run(dev, "8b", windows, main_fastq,
-                                            single_shot=False)
+    table, stats, launches["8b"] = fold_run(dev, "8b", windows, main_fastq)
     want_keys = main_table.keys.numpy().view(np.uint64)
     check_wide(table, want_keys, main_table.counts.numpy(), K, "8b")
     log(f"8b: equal to phase 4's table; {table.distinct()} live rows in "
@@ -2786,7 +2786,7 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
 
     def by_path(name):
-        return {"single_shot (phase 4)": launches[name],
+        return {"main path (phase 4)": launches[name],
                 "bench (phase 7)": bench_launches[name],
                 **{f"fold ({c})": n[name] for c, n in fold_launches.items()},
                 **{f"sql ({c})": n[name] for c, n in sql_launches.items()},

@@ -8,10 +8,9 @@ kernels (``kernels/``), a CPU tensor through their plain PyTorch versions.
 
 Ported so far:
 
-* the file -> exact count table path with both routes
-  (``pipeline.count_file``, ``python -m kmer_tpu_torch count``): the
-  single-shot count, and the streaming fold into a 64-bit accumulator
-  with growth, spill and resumable checkpoints (``ops.wide``,
+* the file -> exact count table path (``pipeline.count_file``,
+  ``python -m kmer_tpu_torch count``): the streaming fold into a 64-bit
+  accumulator with growth, spill and resumable checkpoints (``ops.wide``,
   ``parallel.streaming``);
 * the reference's SQL surface: the ``Dna``/``Kmer``/``Qkmer`` types,
   ``generate_kmers``, the predicates (``ops.predicates``), GROUP BY

@@ -84,8 +84,9 @@ def _cmd_count(args) -> int:
     if args.trace:
         return _traced_count(args)
     from .api import KmerTable
-    from .ops.wide import WideCounts
+    from .ops.wide import wide_from_table
     from .packed import PackedKmers, hi_lo_from_key
+    from .parallel.streaming import save_wide
     from .pipeline import (
         column_batch_feed,
         count_batches_pipelined,
@@ -125,7 +126,7 @@ def _cmd_count(args) -> int:
             spill_dir=args.spill_dir, device=args.device)
     else:
         table = KmerTable.from_csv(args.input, device=args.device)
-        result = table.group_by_kmer()
+        result = wide_from_table(table.group_by_kmer())
         stats.record_batch(len(table), 0, result.total(), result.distinct())
     log.info("stats %s", stats.to_json())
     log.info("launches %s", json.dumps(launches()))
@@ -137,15 +138,7 @@ def _cmd_count(args) -> int:
     print(f"# {distinct} distinct, {total} total", file=sys.stderr)
     if args.save:
         meta = {"k": args.k, "canonical": args.canonical}
-        t = result.trim()
-        if isinstance(t, WideCounts):
-            from .parallel.streaming import save_wide
-
-            save_wide(t, args.save, meta)
-        else:
-            from .utils.checkpoint import save_table
-
-            save_table(t, args.save, meta)
+        save_wide(result.trim(), args.save, meta)
         log.info("saved table to %s", args.save)
     return 0
 

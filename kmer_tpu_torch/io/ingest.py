@@ -3,7 +3,7 @@ FASTQ file (plain or ``.gz``), each parsed standalone by the native
 encoders.  The counterpart of ``kmer_tpu/io/ingest.py``.
 
 Memory bound: one chunk plus one carried partial record.  A record larger
-than the chunk budget grows the carry until it completes.  The routing
+than the chunk budget grows the carry until it completes.  The file
 probe's sample (``probe_sample``) is bounded by its size alone: it never
 reads on to a record's end.
 """
@@ -88,7 +88,7 @@ def _cut_near_end(data: bytes, fmt: str) -> int:
 
 def probe_sample(path: str, fmt: str, probe_bytes: int
                  ) -> tuple[bytes, int, bool]:
-    """The routing probe's sample of a file: (window, disk_bytes,
+    """The file probe's sample of a file: (window, disk_bytes,
     cut_in_record).
 
     Reads at most ``probe_bytes`` of (inflated) input, and one byte more

@@ -1,22 +1,15 @@
-"""Disk-to-table counting: ``count_file`` and its two routes.
+"""Disk-to-table counting: ``count_file`` and the streaming fold.
 
 The counterpart of ``kmer_tpu/pipeline.py``.  A producer thread parses
 the file (native C) and packs fixed-width 2-bit rows, one ``[B, W/16 + 1]``
 uint32 wire array per batch with the row lengths in the last column,
 while the device works on the batch before.  On the device each batch is
 turned into its k-window keys (canonicalized when asked) and valid mask by
-one kernel, ``kernels/wire_keys``, and then:
-
-* **single-shot** (files whose windows fit one device buffer, up to ~150M
-  window slots): every batch's keys go into one flat int64 buffer, and
-  one ``count_windows`` (a sort, then the segment-count kernel) makes a
-  CountTable;
-* **streaming fold** (larger files, or a checkpoint, spill directory or
-  device slot budget): each batch is counted, its live groups compacted,
-  and merged into a 64-bit ``WideCounts`` accumulator that grows in
-  powers of two and, at the budget, spills sorted runs that finish with
-  an exact K-way merge.  Confirmed points are checkpointed so a killed
-  run resumes where it stopped.
+one kernel, ``kernels/wire_keys``, counted, its live groups compacted,
+and merged into a 64-bit ``WideCounts`` accumulator that grows in powers
+of two and, at a device slot budget, spills sorted runs that finish with
+an exact K-way merge.  Confirmed points are checkpointed so a killed run
+resumes where it stopped.  A small file is one auto-sized batch.
 
 ``kmer_tpu``'s fold reverts a batch on the device when the merge
 overflows and replays it later, because reading a device value stalls
@@ -42,16 +35,13 @@ from .device import resolve_device
 from .errors import InvalidKmerLengthError
 from .kernels.wire_keys import wire_keys
 from .native import rows_packed
-from .ops.count import CountTable, count_windows
+from .ops.count import count_windows
 from .ops.wide import (
     SpillRuns, WideCounts, fit_groups, live_rows, merge_groups, merge_runs,
     pad_wide, table_groups)
 from .utils.logging import StatsCounters, get_logger
 from .utils import profiling
 from .utils.profiling import Profile, phase_timer, span, synchronize
-
-# single-shot ceiling in window slots (the value of kmer_tpu/pipeline.py)
-_SINGLE_SHOT_MAX = 150 * 1000 * 1000
 
 
 def auto_width(lengths: np.ndarray, cap: int = 1024) -> int:
@@ -86,7 +76,8 @@ def file_batch_feed(path: str, fmt: str, k: int, batch: int | None,
     consumer, whose word axis must split evenly).  ``est_windows``
     scales the k-mer windows of the probe's window to the whole file by
     the bytes on disk that window stands for (None when no record was
-    probed or the file's size cannot be read): the routing signal.
+    probed or the file's size cannot be read), which clamps an auto-sized
+    batch to a small file.
     ``n_policy`` "break" makes every contig (maximal ACGT run) a read of
     its own (``io.ingest.iter_encoded_chunks``), so the rows, the width
     sample and the estimate go contig by contig; the iterator adds the
@@ -309,45 +300,6 @@ def _record(stats: StatsCounters | None, wire: np.ndarray, k: int) -> None:
         ls = wire[:, -1].astype(np.int64)
         stats.record_batch(int((ls > 0).sum()), int(ls.sum()),
                            int(np.maximum(ls - (k - 1), 0).sum()), 0)
-
-
-class _SingleShotOverflow(Exception):
-    """The routing estimate undershot: the file's real window count
-    exceeds the single-shot buffer ceiling, so take the streaming fold."""
-
-
-def _count_single_shot(feed, k: int, canonical: bool, batch: int,
-                       width: int, device: torch.device,
-                       stats: StatsCounters | None = None) -> CountTable:
-    """Upload packed batches as they arrive (overlapping the parse), write
-    each batch's windows straight into one flat key buffer, then count
-    once."""
-    spb = batch * (width - k + 1)
-    ceiling = int(_SINGLE_SHOT_MAX * 1.3)  # routing estimate headroom
-    wires = []
-    feeder = _Feeder(feed, depth=3)
-    feeder.start()
-    try:
-        while (item := _next(feeder)) is not None:
-            if isinstance(item, BaseException):
-                raise item
-            if (len(wires) + 1) * spb > ceiling:
-                raise _SingleShotOverflow()
-            wires.append(_upload(item[1], device))
-            _record(stats, item[1], k)
-    finally:
-        feeder.stop()
-    if not wires:
-        raise ValueError("empty batch stream")
-    keys = torch.empty(len(wires) * spb, dtype=torch.int64, device=device)
-    valid = torch.empty(len(wires) * spb, dtype=torch.bool, device=device)
-    for i, wire in enumerate(wires):
-        at = slice(i * spb, (i + 1) * spb)
-        wire_keys(wire, width, k, canonical,
-                  keys_out=keys[at].view(batch, -1),
-                  valid_out=valid[at].view(batch, -1))
-    del wires
-    return count_windows(keys, valid, k)
 
 
 # --- the streaming fold ---------------------------------------------------
@@ -667,15 +619,11 @@ def count_file(
     device: str | torch.device,
     profile: Profile | None = None,
     n_policy: str = "skip",
-) -> CountTable | WideCounts:
-    """Count a FASTA/FASTQ file end to end on ``device``.
-
-    Returns a CountTable from the single-shot route (small files: every
-    window fits one device buffer) and a WideCounts from the streaming
-    fold.  ``single_shot=None`` routes by an extrapolated window
-    estimate; a checkpoint, a spill directory or a device budget always
-    takes the fold, and so does a file whose estimate undershot (found
-    mid-stream).  ``profile`` times the fold's device phases.
+) -> WideCounts:
+    """Count a FASTA/FASTQ file end to end on ``device`` through the
+    streaming fold (``count_batches_pipelined``); a small file is one
+    auto-sized batch.  ``single_shot`` must be None or False (one route).
+    ``profile`` times the fold's device phases.
 
     ``n_policy`` says what a non-ACGT sequence byte (N, n, an IUPAC
     letter, anything the parser does not encode) does: "skip" (the
@@ -687,33 +635,14 @@ def count_file(
     broken at.
     """
     device = resolve_device(device)
+    if single_shot:
+        raise ValueError("single_shot=True: count_file has one route, the "
+                         "streaming fold")
     if not 1 <= k <= MAX_K:
         raise InvalidKmerLengthError()
-    feed, batch, width, est_windows = file_batch_feed(
+    feed, _, _, _ = file_batch_feed(
         path, fmt, k, batch, width, chunk_bytes, n_policy=n_policy,
         stats=stats)
-    if single_shot is None:
-        single_shot = (
-            est_windows is not None
-            and est_windows * 1.1 <= _SINGLE_SHOT_MAX
-            and batch * (width - k + 1) <= _SINGLE_SHOT_MAX
-            and not ckpt_path and not spill_dir and not max_capacity
-        )
-    if single_shot:
-        try:
-            return _count_single_shot(feed, k, canonical, batch, width,
-                                      device, stats)
-        except _SingleShotOverflow:
-            # stats batches recorded before the abort are counted again
-            # by the streaming rerun (metrics only; counts stay exact)
-            if stats is not None:
-                stats.reroutes += 1
-            get_logger().info(
-                "single-shot routing estimate undershot; falling back "
-                "to the streaming fold")
-            feed, batch, width, est_windows = file_batch_feed(
-                path, fmt, k, batch, width, chunk_bytes, n_policy=n_policy,
-                stats=stats)
     try:
         # bases <= file bytes (FASTA ~1x, FASTQ ~0.45x); windows <= bases
         est = os.path.getsize(path) // (2 if fmt == "fastq" else 1)

@@ -33,7 +33,7 @@ engine's own path at its script's workload, and checks what it counted):
 * ``device_phases``: probe_phases.py, extraction, sort and segment counts
   alone, and three primitive rates;
 * ``count_phases``: probe_r5b.py, probe_r5c.py and probe_r5e.py,
-  ``count_file``'s feed, upload, computes, routes and trim;
+  ``count_file``'s feed, upload, fold compute and trim;
 * ``read_stream``: probe_r5a.py, ``count_read_stream`` split up, and a
   pipelined fold;
 * ``fold_step``: probe_step.py and probe_r5d.py, the stream step's parts

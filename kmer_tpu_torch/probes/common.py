@@ -390,8 +390,7 @@ def rows_digest(hi, lo, length, counts) -> dict:
 
 
 def table_digest(table) -> dict:
-    """``rows_digest`` of a port CountTable's or WideCounts' live rows."""
+    """``rows_digest`` of a port WideCounts' live rows."""
     t = table.trim()
-    lanes = t.to_numpy()
-    counts = t.counts64() if hasattr(t, "counts64") else lanes[3]
-    return rows_digest(lanes[0], lanes[1], lanes[2], counts)
+    hi, lo, length, _, _ = t.to_numpy()
+    return rows_digest(hi, lo, length, t.counts64())

@@ -18,18 +18,14 @@ canonical 21-mers in 4,999,967 groups.
   script's rule when both take less than the sort plus 0.6 of the
   upload alone;
 * r5e, each twice: the feed alone (``file_batch_feed``); the upload alone
-  (one ``_combine``d wire a batch); the single-shot compute on resident
-  batches (``_count_single_shot``'s placement of every batch's keys
-  through ``wire_keys`` into one buffer, and one ``count_windows``); the
-  fold compute on resident batches (``_PipelineRun.fold``'s work a batch,
-  ``fold_windows_into_wide``, at 2^24 slots); ``count_file`` end to end on
-  each route;
-* r5b 2 and r5c: ``count_file`` warm with ``single_shot=True``, ``False``
-  and auto, the route auto took, and each result's trim to the host, timed
-  as its own phase.
+  (one ``_combine``d wire a batch); the fold compute on resident batches
+  (``_PipelineRun.fold``'s work a batch, ``fold_windows_into_wide``, at
+  2^24 slots); ``count_file`` end to end;
+* r5c: ``count_file`` warm, and its result's trim to the host, timed as
+  its own phase.
 
-Check: every route's trimmed table is the same, with 4,999,967 groups and
-a total of 130,000,000, and the resident computes find the same groups;
+Check: every trimmed table is the same, with 4,999,967 groups and a
+total of 130,000,000, and the resident compute finds the same groups;
 the feed holds 1,000,000 reads and 130,000,000 windows, the uploaded
 wires carry the feed's bases, each r5b upload reads back equal, and the
 sort's largest key is the input's.
@@ -45,7 +41,6 @@ import numpy as np
 import torch
 
 from ..kernels.wire_keys import wire_keys
-from ..ops.count import CountTable, count_windows
 from ..ops.wide import WideCounts, fold_windows_into_wide
 from ..pipeline import _combine, _upload, count_file, file_batch_feed
 from ..runs.ingest import ensure_fastq
@@ -94,21 +89,6 @@ def host_batches(path: str) -> tuple[list, int, int, int | None]:
     batches, batch, width, the estimated windows)."""
     it, batch, width, est = file_batch_feed(path, "fastq", K, None, None)
     return list(it), batch, width, est
-
-
-def single_shot_compute(wires: list[torch.Tensor], batch: int, width: int):
-    """``_count_single_shot`` after its uploads: each resident wire's keys
-    placed into one flat buffer by ``wire_keys``, then one
-    ``count_windows``."""
-    spb = batch * (width - K + 1)
-    dev = wires[0].device
-    keys = torch.empty(len(wires) * spb, dtype=torch.int64, device=dev)
-    valid = torch.empty(len(wires) * spb, dtype=torch.bool, device=dev)
-    for i, wire in enumerate(wires):
-        at = slice(i * spb, (i + 1) * spb)
-        wire_keys(wire, width, K, True, keys_out=keys[at].view(batch, -1),
-                  valid_out=valid[at].view(batch, -1))
-    return count_windows(keys, valid, K)
 
 
 def fold_compute(wires: list[torch.Tensor], width: int, slots: int
@@ -184,9 +164,9 @@ def run(device: torch.device, small: bool = False, workdir=None):
     with workspace(workdir) as d:
         path = ingest_fastq(d, small)
 
-        def count(**kw):
+        def count():
             return count_file(path, "fastq", K, canonical=True,
-                              device=device, **kw)
+                              device=device)
 
         res, cold_s = wall(count, device)
         ref = table_digest(res)
@@ -222,41 +202,33 @@ def run(device: torch.device, small: bool = False, workdir=None):
             bases == int(lens.sum()), {"upload": ups},
             {"MB": round(mb, 1), "MB/s": round(mb / min(ups), 1),
              "bases": bases}, card=card)
-        for name, fn in (
-                ("single-shot compute",
-                 lambda: single_shot_compute(wires, batch, width)),
-                ("fold compute", lambda: fold_compute(wires, width, slots))):
-            table, times = twice(fn, device)
-            got = table_digest(table)
-            del table
-            yield PhaseRecord(
-                f"r5e {name} (resident batches)", "count_phases",
-                SITES["r5e"], str(device), got == ref, {"compute": times},
-                {"slots": slots} if name == "fold compute" else None,
-                {name: got}, card=card)
+        table, times = twice(lambda: fold_compute(wires, width, slots),
+                             device)
         del wires
-        for name, single in (("single-shot", True), ("fold", False)):
-            res, times = twice(lambda: count(single_shot=single), device)
-            got = table_digest(res)
-            del res
-            yield PhaseRecord(
-                f"r5e count_file {name}", "count_phases", SITES["r5e"],
-                str(device), got == ref, {"e2e": times},
-                {"Mkmers/s": round(ref["total"] / min(times) / 1e6, 2)},
-                {name: got}, card=card)
+        got = table_digest(table)
+        del table
+        yield PhaseRecord(
+            "r5e fold compute (resident batches)", "count_phases",
+            SITES["r5e"], str(device), got == ref, {"compute": times},
+            {"slots": slots}, {"fold compute": got}, card=card)
 
-        for name, kw in (("single_shot=True", {"single_shot": True}),
-                         ("single_shot=False", {"single_shot": False}),
-                         ("auto", {})):
-            res, s = wall(lambda: count(**kw), device)
-            route = "single-shot" if isinstance(res, CountTable) else "fold"
-            trimmed, trim_s = wall(res.trim, device)
-            del res
-            got = table_digest(trimmed)
-            del trimmed
-            yield PhaseRecord(
-                f"r5c count_file {name}", "count_phases", SITES["r5c"],
-                str(device), got == ref and holds(got, want),
-                {"count_file": s, "trim": trim_s},
-                {"route": route, "Mkmers/s": round(got["total"] / s / 1e6, 2)},
-                {name: got}, card=card)
+        res, times = twice(count, device)
+        got = table_digest(res)
+        del res
+        yield PhaseRecord(
+            "r5e count_file", "count_phases", SITES["r5e"], str(device),
+            got == ref, {"e2e": times},
+            {"Mkmers/s": round(ref["total"] / min(times) / 1e6, 2)},
+            {"count_file": got}, card=card)
+
+        res, s = wall(count, device)
+        trimmed, trim_s = wall(res.trim, device)
+        del res
+        got = table_digest(trimmed)
+        del trimmed
+        yield PhaseRecord(
+            "r5c count_file warm", "count_phases", SITES["r5c"], str(device),
+            got == ref and holds(got, want),
+            {"count_file": s, "trim": trim_s},
+            {"Mkmers/s": round(got["total"] / s / 1e6, 2)},
+            {"warm": got}, card=card)

@@ -147,14 +147,11 @@ def ensure_fastq(path: str, n_reads: int, seed: int) -> float:
 
 
 def table_rows(table) -> tuple[np.ndarray, ...]:
-    """(hi, lo, length, 64-bit counts) of a CountTable's or WideCounts's
-    live rows, in the table's (ascending key) order."""
-    lanes = table.trim().to_numpy()
-    if len(lanes) == 4:
-        hi, lo, length, counts = lanes
-        return hi, lo, length, counts.astype(np.int64)
-    hi, lo, length, c_hi, c_lo = lanes
-    return hi, lo, length, (c_hi.astype(np.int64) << 32) + c_lo
+    """(hi, lo, length, 64-bit counts) of a WideCounts's live rows, in the
+    table's (ascending key) order."""
+    t = table.trim()
+    hi, lo, length, _, _ = t.to_numpy()
+    return hi, lo, length, t.counts64()
 
 
 def load_table(path: str) -> tuple[np.ndarray, ...]:

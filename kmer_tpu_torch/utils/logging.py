@@ -37,8 +37,7 @@ class StatsCounters:
     spills: int = 0  # streaming fold: sorted runs spilled
     breaks: int = 0  # n_policy "break": contigs begun at a non-ACGT run
     break_bases: int = 0  # n_policy "break": non-ACGT bytes broken at
-    probe_cuts: int = 0  # routing probes whose sample ended inside a record
-    reroutes: int = 0  # single-shot runs abandoned for the streaming fold
+    probe_cuts: int = 0  # file probes whose sample ended inside a record
     # sharded stream: live groups over slots sent by the partition merge
     merge_efficiency: float | None = None
     started_at: float = dataclasses.field(default_factory=time.time)

@@ -1,5 +1,5 @@
-"""The port's streaming-fold route (count_batches_pipelined, count_file
-with the fold, checkpoints, spills, the CLI flags) vs kmer_tpu's, on the
+"""The port's streaming fold (count_batches_pipelined, count_file,
+checkpoints, spills, the CLI flags) vs kmer_tpu's, on the
 CPU.  Tables are compared exactly: keys, lengths and 64-bit counts; error
 strings are compared whole.  The case list follows tests/test_pipeline.py.
 """
@@ -14,7 +14,6 @@ import pytest
 
 import kmer_tpu.pipeline as jp
 from kmer_tpu_torch import pipeline
-from kmer_tpu_torch.ops.count import CountTable
 from kmer_tpu_torch.ops.wide import WideCounts
 from kmer_tpu_torch.pipeline import (
     PipelineCheckpoint, count_batches_pipelined, count_file, file_batch_feed)
@@ -58,19 +57,16 @@ def _write_fastq(path, seed, n_reads, lmin=10, lmax=120):
 
 
 def _assert_same(got, want):
-    """Trimmed port table (WideCounts or CountTable) == kmer_tpu's."""
+    """Trimmed port WideCounts == kmer_tpu's table (either kind)."""
     t, w = got.trim(), want.trim()
-    if isinstance(t, WideCounts):
-        hi, lo, length, _, _ = t.to_numpy()
-        counts = t.counts64()
-    else:
-        hi, lo, length, counts = t.to_numpy()
+    hi, lo, length, _, _ = t.to_numpy()
+    counts = t.counts64()
     np.testing.assert_array_equal(hi, np.asarray(w.hi, np.uint32))
     np.testing.assert_array_equal(lo, np.asarray(w.lo, np.uint32))
     np.testing.assert_array_equal(length, np.asarray(w.length, np.int32))
     want_counts = (w.counts64() if hasattr(w, "counts64")
                    else np.asarray(w.counts, np.int64))
-    np.testing.assert_array_equal(counts.astype(np.int64), want_counts)
+    np.testing.assert_array_equal(counts, want_counts)
 
 
 @pytest.mark.parametrize("fmt, k, canonical", [
@@ -89,24 +85,27 @@ def test_count_file_fold_matches_kmer_tpu(tmp_path, fmt, k, canonical):
     want = jp.count_file(path, fmt, k, canonical=canonical, batch=64,
                          single_shot=False)
     got = count_file(path, fmt, k, canonical=canonical, batch=64,
-                     single_shot=False, device="cpu")
+                     device="cpu")
     assert isinstance(got, WideCounts)
     _assert_same(got, want)
     assert got.distinct() == int(want.n_unique)
 
 
 def test_both_routes_agree(tmp_path):
+    """A small file folds in one auto-sized batch, to the table of many
+    batches and of kmer_tpu."""
     path = str(tmp_path / "r.fastq")
     _write_fastq(path, 10, 400)
-    auto = count_file(path, "fastq", 9, canonical=True, batch=64,
+    stats = StatsCounters()
+    got = count_file(path, "fastq", 9, canonical=True, stats=stats,
+                     device="cpu")
+    assert isinstance(got, WideCounts) and stats.batches == 1
+    many = count_file(path, "fastq", 9, canonical=True, batch=64,
                       device="cpu")
-    fold = count_file(path, "fastq", 9, canonical=True, batch=64,
-                      single_shot=False, device="cpu")
-    assert isinstance(auto, CountTable) and isinstance(fold, WideCounts)
-    assert auto.to_dict() == fold.to_dict()
-    assert auto.distinct() == fold.distinct()
-    _assert_same(fold, jp.count_file(path, "fastq", 9, canonical=True,
-                                     batch=64))
+    assert got.to_dict() == many.to_dict()
+    want = jp.count_file(path, "fastq", 9, canonical=True, batch=64)
+    _assert_same(got, want)
+    assert got.distinct() == many.distinct() == int(want.n_unique)
 
 
 def test_pipelined_exact_and_growth_from_16():
@@ -312,20 +311,18 @@ def test_ckpt_spill_resume_carries_runs(tmp_path):
     _assert_same(res, want)
 
 
-def test_undershot_estimate_falls_back_to_the_fold(tmp_path, monkeypatch):
-    """The routing estimate counts windows, the single-shot buffer counts
-    padded slots: with a ceiling just above the estimate, the buffer
-    trips it mid-stream and the count takes the fold instead."""
+def test_undershot_estimate_falls_back_to_the_fold(tmp_path):
+    """The fold is the one route, whatever the estimate:
+    ``single_shot=True`` raises, and False counts as None does."""
     path = str(tmp_path / "r.fastq")
     _write_fastq(path, 21, 300, lmin=1, lmax=150)
-    kw = dict(canonical=True, batch=16, width=160)
-    _, _, _, est = file_batch_feed(path, "fastq", 21, 16, 160)
-    monkeypatch.setattr(pipeline, "_SINGLE_SHOT_MAX", int(est * 1.1) + 1)
-    stats = StatsCounters()
-    got = count_file(path, "fastq", 21, device="cpu", stats=stats, **kw)
-    assert isinstance(got, WideCounts)
-    assert (stats.reroutes, stats.probe_cuts) == (1, 0)
-    _assert_same(got, jp.count_file(path, "fastq", 21, **kw))
+    kw = dict(canonical=True, batch=16, width=160, device="cpu")
+    with pytest.raises(ValueError, match="one route"):
+        count_file(path, "fastq", 21, single_shot=True, **kw)
+    got = count_file(path, "fastq", 21, single_shot=False, **kw)
+    assert got.to_dict() == count_file(path, "fastq", 21, **kw).to_dict()
+    _assert_same(got, jp.count_file(path, "fastq", 21, canonical=True,
+                                    batch=16, width=160))
 
 
 def _cli(args):

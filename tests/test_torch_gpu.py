@@ -677,17 +677,15 @@ def test_trim_through_the_ring_on_cuda_equals_cpu(monkeypatch, chunk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", [[], ["--max-slots", str(1 << 22)]])
+@pytest.mark.parametrize("budget", [[], ["--max-slots", str(1 << 22)]])
 def test_count_save_on_cuda_is_the_parent_trims_file(tmp_path, capsys,
-                                                     route):
+                                                     budget):
     """``count --save`` on the card writes, byte for byte, the file that
     the trim before the ring gives, and the CPU's; the printed tables
     match."""
     from kmer_tpu_torch.cli import main
-    from kmer_tpu_torch.ops.wide import WideCounts
     from kmer_tpu_torch.parallel.streaming import save_wide
     from kmer_tpu_torch.pipeline import count_file
-    from kmer_tpu_torch.utils.checkpoint import save_table
 
     _cuda()
     rng = np.random.default_rng(9)
@@ -701,18 +699,14 @@ def test_count_save_on_cuda_is_the_parent_trims_file(tmp_path, capsys,
     for dev in ("cuda", "cpu"):
         files[dev] = str(tmp_path / f"{dev}.npz")
         assert main(["count", "--input", fq, "-k", "21", "--canonical",
-                     "--device", dev, "--save", files[dev], *route]) == 0
+                     "--device", dev, "--save", files[dev], *budget]) == 0
         printed[dev] = capsys.readouterr().out
     assert printed["cuda"] == printed["cpu"] and printed["cuda"].count(
         "\n") > 1000
     result = count_file(fq, "fastq", 21, canonical=True, device="cuda",
-                        max_capacity=int(route[1]) if route else None)
+                        max_capacity=int(budget[1]) if budget else None)
     parent = str(tmp_path / "parent.npz")
-    meta = {"k": 21, "canonical": True}
-    if isinstance(result, WideCounts):
-        save_wide(_parent_trim(result), parent, meta)
-    else:
-        save_table(_parent_trim(result), parent, meta)
+    save_wide(_parent_trim(result), parent, {"k": 21, "canonical": True})
     with open(parent, "rb") as f:
         want = f.read()
     for dev in ("cuda", "cpu"):

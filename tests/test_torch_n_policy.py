@@ -188,19 +188,21 @@ KS = [(1, False), (1, True), (21, True), (21, False), (31, True),
       (32, True), (32, False)]
 
 
-@pytest.mark.parametrize("single_shot", [True, False],
-                         ids=["single_shot", "fold"])
+@pytest.mark.parametrize("batch", [None, 32],
+                         ids=["one-batch", "many-batches"])
 @pytest.mark.parametrize("k,canonical", KS)
 @pytest.mark.parametrize("fmt", ["fasta", "fastq"])
-def test_count_file_breaks_at_runs(tmp_path, fmt, k, canonical, single_shot):
+def test_count_file_breaks_at_runs(tmp_path, fmt, k, canonical, batch):
+    """The whole small file in one auto-sized batch, or in many."""
     records = [*random_records(k * 7 + 1, 10, 500)]
     for recs in EDGE_RECORDS.values():
         records.extend(recs)
     path = write(tmp_path, fmt, records)
     stats = StatsCounters()
     res = count_file(path, fmt, k, canonical=canonical, device="cpu",
-                     n_policy="break", single_shot=single_shot, batch=32,
-                     stats=stats)
+                     n_policy="break", batch=batch, stats=stats)
+    if batch is None:
+        assert stats.batches == 1
     assert program_table(res, k) == plain_table(records, k, canonical)
     assert stats.breaks == inner_runs(records)
     assert stats.break_bases == sum(len(s) for s in records) - sum(
@@ -215,7 +217,7 @@ def test_runs_across_chunk_boundaries(tmp_path, fmt, chunk_bytes):
     records = random_records(chunk_bytes, 30, 300, p_gap=0.08)
     path = write(tmp_path, fmt, records)
     res = count_file(path, fmt, 21, canonical=True, device="cpu",
-                     n_policy="break", single_shot=False, batch=16,
+                     n_policy="break", batch=16,
                      chunk_bytes=chunk_bytes)
     assert program_table(res, 21) == plain_table(records, 21, True)
 

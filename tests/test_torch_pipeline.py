@@ -1,6 +1,7 @@
-"""The port's count_file (single-shot route) and CLI vs kmer_tpu's, on the
-CPU: trimmed tables equal array for array, CLI stdout equal line for line.
-The streaming fold is held in tests/test_torch_fold_pipeline.py.
+"""The port's count_file and CLI vs kmer_tpu's, on the CPU: trimmed
+tables equal array for array, CLI stdout equal line for line.  The
+fold's growth, spills and checkpoints are held in
+tests/test_torch_fold_pipeline.py.
 """
 
 import gzip
@@ -42,11 +43,12 @@ def _write(path, seqs, fmt):
 def _assert_same(path, fmt, k, **kw):
     want = jax_count_file(path, fmt, k, **kw).trim()
     table = count_file(path, fmt, k, device="cpu", **kw)
-    hi, lo, length, counts = table.trim().to_numpy()
+    t = table.trim()
+    hi, lo, length, _, _ = t.to_numpy()
     np.testing.assert_array_equal(hi, np.asarray(want.hi))
     np.testing.assert_array_equal(lo, np.asarray(want.lo))
     np.testing.assert_array_equal(length, np.asarray(want.length))
-    np.testing.assert_array_equal(counts, np.asarray(want.counts))
+    np.testing.assert_array_equal(t.counts64(), np.asarray(want.counts))
     assert table.distinct() == int(want.n_unique)
     return table
 
@@ -110,7 +112,7 @@ def test_cli_stdout_matches_kmer_tpu(tmp_path, capsys, args):
 
 
 def test_cli_save_loads_in_kmer_tpu(tmp_path):
-    from kmer_tpu.utils.checkpoint import load_table
+    from kmer_tpu.parallel.streaming import load_wide
 
     rng = np.random.default_rng(4)
     path = str(tmp_path / "r.fastq")
@@ -121,8 +123,8 @@ def test_cli_save_loads_in_kmer_tpu(tmp_path):
          "-k", "11", "--canonical", "--save", out, "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert got.returncode == 0, got.stderr
-    table, meta = load_table(out)
-    assert meta == {"version": 1, "k": 11, "canonical": True}
+    table, meta = load_wide(out)
+    assert meta == {"version": 2, "k": 11, "canonical": True}
     want = count_file(path, "fastq", 11, canonical=True, device="cpu")
     assert table.to_dict() == want.to_dict()
 

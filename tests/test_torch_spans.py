@@ -50,13 +50,12 @@ def _fasta(path, n_bases=60000, seed=2):
 
 FILES = {
     # (writer, format, count_file options): a fold of many batches, the
-    # single-shot route, and one record read whole by the routing probe
-    "fastq-fold": (_fastq, "fastq", {"single_shot": False, "batch": 256,
-                                     "chunk_bytes": 1 << 16}),
-    "fastq-single": (_fastq, "fastq", {"single_shot": True, "batch": 256,
-                                       "chunk_bytes": 1 << 16}),
-    "fasta-record": (_fasta, "fasta", {"single_shot": False, "batch": 16,
-                                       "chunk_bytes": 1 << 14}),
+    # whole file in one auto-sized batch, and one record read whole by
+    # the probe
+    "fastq-fold": (_fastq, "fastq", {"batch": 256, "chunk_bytes": 1 << 16}),
+    "fastq-one-batch": (_fastq, "fastq", {"batch": None,
+                                          "chunk_bytes": 1 << 16}),
+    "fasta-record": (_fasta, "fasta", {"batch": 16, "chunk_bytes": 1 << 14}),
 }
 
 
@@ -145,10 +144,9 @@ def test_count_file_spans(tmp_path, case):
     want = {"count_file", "feed.probe", "feed.read", "feed.parse",
             "queue.wait", "upload"} | TRIM | FEEDER
     assert want <= names
-    if opts["single_shot"]:
-        assert not names & FOLD
-    else:
-        assert FOLD <= names and "count_batches_pipelined" in names
+    assert FOLD <= names and "count_batches_pipelined" in names
+    uploads = sum(s.name == "upload" for s in spans)
+    assert (uploads == 1) == (opts["batch"] is None)
     _check_trace(spans, ranges)
     _check_jobs(spans)
     main = threading.get_native_id()
@@ -162,8 +160,7 @@ def test_count_file_spans(tmp_path, case):
     assert sum(s.nbytes for s in spans if s.name == "upload") \
         == _wire_bytes(path, fmt, k, opts)
     copy = [s for s in spans if s.name == "trim.copy"]
-    # the landed columns hold the lanes' bytes: 20 B a row, 16 for a
-    # CountTable
+    # the landed columns hold the lanes' bytes: 20 B a row
     assert [s.nbytes for s in copy] == [sum(a.nbytes for a in lanes)]
     assert profiling.TRACED.bytes["upload"] == _wire_bytes(
         path, fmt, k, opts)
@@ -217,8 +214,8 @@ def test_a_given_profile_keeps_its_phases_and_the_module_record_nothing(
         tmp_path):
     path = _fastq(str(tmp_path / "in.fastq"), n_reads=600)
     prof = Profile()
-    pipeline.count_file(path, "fastq", 15, device="cpu", single_shot=False,
-                        batch=128, chunk_bytes=1 << 15, profile=prof)
+    pipeline.count_file(path, "fastq", 15, device="cpu", batch=128,
+                        chunk_bytes=1 << 15, profile=prof)
     assert set(prof.phases) == FOLD
     names = {s.name for s in prof.spans}
     assert {"count_file", "feed.probe", "queue.wait", "upload",

@@ -85,7 +85,7 @@ def test_wire_keys_lengths_free(k, canonical):
 @pytest.mark.parametrize("k", [15, 21, 32])
 def test_wire_keys_into_flat_buffer_views(k, first):
     """Batch i writes slots [i * spb, (i + 1) * spb) of one flat buffer
-    through [B, m] views (an odd start too), as the single-shot count does;
+    through [B, m] views (an odd start too), as count_long_sequence does;
     nothing outside the views changes."""
     width, b = 48, 12
     m = width - k + 1
