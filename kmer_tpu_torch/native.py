@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 import torch
@@ -25,6 +26,10 @@ from .kernels.build import native_library
 _lib = None
 
 N_POLICIES = ("skip", "break")
+SPLIT_KINDS = ("record", "line", "merged")  # host_parse.c's KB_SPLIT_*
+
+_splits_lock = threading.Lock()
+_splits = dict.fromkeys(SPLIT_KINDS, 0)
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_longlong)
@@ -39,9 +44,10 @@ def _load():
     lib.kn_encode_validate.argtypes = [ctypes.c_char_p, ctypes.c_longlong, _u8p]
     parse_argtypes = [ctypes.c_char_p, ctypes.c_longlong, _u8p, _i64p,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-    for fn in (lib.kn_fasta_encode_mt, lib.kn_fastq_encode_mt):
-        fn.restype = ctypes.c_longlong
-        fn.argtypes = parse_argtypes
+    lib.kn_fastq_encode_mt.restype = ctypes.c_longlong
+    lib.kn_fastq_encode_mt.argtypes = parse_argtypes
+    lib.kb_fasta_encode_mt.restype = ctypes.c_longlong
+    lib.kb_fasta_encode_mt.argtypes = [*parse_argtypes, _i64p]
     lib.kb_encode_break_mt.restype = ctypes.c_longlong
     lib.kb_encode_break_mt.argtypes = [
         ctypes.c_char_p, ctypes.c_longlong, _u8p, _i64p, ctypes.c_longlong,
@@ -56,6 +62,28 @@ def _load():
         ctypes.c_int]
     _lib = lib
     return lib
+
+
+def splits() -> dict[str, int]:
+    """The interior bounds at which this process's FASTA parses
+    (``fasta_encode``, ``contigs_encode``) split their threads' ranges so
+    far, by kind: ``record`` (at a record start), ``line`` (at a line
+    start inside a record longer than a range) and ``merged`` (neither in
+    the range, which joins its neighbour's)."""
+    with _splits_lock:
+        return dict(_splits)
+
+
+def zero_splits() -> None:
+    with _splits_lock:
+        for key in _splits:
+            _splits[key] = 0
+
+
+def _count_splits(found: np.ndarray) -> None:
+    with _splits_lock:
+        for key, n in zip(SPLIT_KINDS, found.tolist()):
+            _splits[key] += n
 
 
 def _parse_threads() -> int:
@@ -74,7 +102,7 @@ def encode_dna_fast(seq: bytes | str) -> np.ndarray:
     return out
 
 
-def _encode(fn, data: bytes, fmt: str, skip_invalid: bool):
+def _encode(fn, data: bytes, fmt: str, skip_invalid: bool, *extra):
     # a FASTA record is >= 3 bytes and a FASTQ record >= 8: size the
     # offsets buffer from the input
     max_reads = min(1 << 24, len(data) // (8 if fmt == "fastq" else 3) + 16)
@@ -82,7 +110,7 @@ def _encode(fn, data: bytes, fmt: str, skip_invalid: bool):
     codes = np.empty(n, dtype=np.uint8)
     offsets = np.empty(max_reads + 1, dtype=np.int64)
     r = fn(data, n, codes.ctypes.data_as(_u8p), offsets.ctypes.data_as(_i64p),
-           max_reads, 1 if skip_invalid else 0, _parse_threads())
+           max_reads, 1 if skip_invalid else 0, _parse_threads(), *extra)
     if r == -1 - n:
         raise ValueError(f"{fmt}_encode: max_reads capacity exceeded")
     if r < 0:
@@ -93,8 +121,15 @@ def _encode(fn, data: bytes, fmt: str, skip_invalid: bool):
 
 
 def fasta_encode(data: bytes, skip_invalid: bool = True):
-    """FASTA bytes -> (code stream, per-read offsets [n_reads+1])."""
-    return _encode(_load().kn_fasta_encode_mt, data, "fasta", skip_invalid)
+    """FASTA bytes -> (code stream, per-read offsets [n_reads+1]).
+
+    A record longer than a thread's range is split at line starts, so
+    that every parser thread takes part (``splits``)."""
+    found = np.zeros(len(SPLIT_KINDS), dtype=np.int64)
+    out = _encode(_load().kb_fasta_encode_mt, data, "fasta", skip_invalid,
+                  found.ctypes.data_as(_i64p))
+    _count_splits(found)
+    return out
 
 
 def fastq_encode(data: bytes, skip_invalid: bool = True):
@@ -112,12 +147,13 @@ def contigs_encode(data: bytes, fmt: str
     bytes: each contig (maximal ACGT run of a record) is one read.
     ``breaks`` counts the contigs begun at a run inside a record, ``gap
     bytes`` the non-ACGT sequence bytes.  One pass of the parse, on the
-    skipping parsers' record-aligned threads."""
+    skipping parsers' threads: a FASTA record longer than a range is split
+    at line starts where a contig runs across (``splits``)."""
     n = len(data)
     lib = _load()
     fastq = 1 if fmt == "fastq" else 0
     max_reads = min(1 << 24, n // (8 if fastq else 3) + 16)
-    counts = np.zeros(3, dtype=np.int64)
+    counts = np.zeros(3 + len(SPLIT_KINDS), dtype=np.int64)
     codes = np.empty(n, dtype=np.uint8)
     while True:
         offsets = np.empty(max_reads + 1, dtype=np.int64)
@@ -128,6 +164,7 @@ def contigs_encode(data: bytes, fmt: str
         if r != -1 - n or int(counts[2]) <= max_reads:
             break
         max_reads = int(counts[2])  # more contigs than the first guess
+    _count_splits(counts[3:])
     if r < 0:
         raise InvalidDnaSequenceError()
     total = int(offsets[r])
